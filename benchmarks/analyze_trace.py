@@ -1,9 +1,11 @@
 """Exclusive-self-time breakdown of a jax.profiler trace (xplane).
 
-Round-4's measurement hygiene, now as a script: summing op durations
-double-counts async spans, so self time per op = span minus the union of
-child spans on the same line (stack pass over the device plane's "XLA Ops"
-line). Prints the top ops and a coarse phase aggregation.
+Summing op durations double-counts nested spans, so self time per op =
+span minus the union of child spans on the same line (stack pass over the
+GPU device plane's "XLA Ops" line, or its per-stream kernel lines when the
+trace has no such line). Prints the top ops and a coarse phase aggregation,
+in which the Pallas select kernel (Triton custom calls, kernel name
+``pool_select``) is its own phase.
 
 Usage: python benchmarks/analyze_trace.py /tmp/trace_dir [--iters 10]
        (pass the directory given to jax.profiler.trace)
@@ -33,18 +35,17 @@ def main():
     from jax.profiler import ProfileData
 
     pd = ProfileData.from_file(str(find_xplane(Path(args.trace_dir))))
-    device_planes = [
-        p for p in pd.planes
-        if "TPU" in p.name or "GPU" in p.name or "/device" in p.name.lower()
-    ]
+    device_planes = [p for p in pd.planes if p.name.startswith("/device:GPU")]
     if not device_planes:
-        device_planes = [
-            p for p in pd.planes if "Host" not in p.name and p.name
-        ]
+        raise SystemExit(
+            "no GPU device plane in the trace: "
+            + ", ".join(p.name for p in pd.planes)
+        )
     for plane in device_planes:
-        for line in plane.lines:
-            if line.name not in ("XLA Ops",):
-                continue
+        lines = [ln for ln in plane.lines if ln.name == "XLA Ops"] or [
+            ln for ln in plane.lines if ln.name.startswith("Stream")
+        ]
+        for line in lines:
             evs = sorted(
                 ((e.start_ns, e.end_ns, e.name) for e in line.events),
                 key=lambda t: (t[0], -t[1]),
@@ -85,7 +86,7 @@ def main():
             phases = defaultdict(float)
             for name, ns in self_ns.items():
                 n = name.lower()
-                if "custom-call" in n or "tpu_custom_call" in n:
+                if "pool_select" in n or "triton" in n or "custom-call" in n:
                     phases["pallas kernels"] += ns
                 elif "sort" in n:
                     phases["sort"] += ns

@@ -4,11 +4,10 @@ Registers a 131k-point LiDAR-like scan pair (io/synthetic.kitti_like; the
 repo ships no datasets) at the KITTI operating point — radius 0.5 m on a
 ~150 m scene, k=20, fixed 10 outer iterations — and emits one JSON line
 with end-to-end seconds/pair. This is the sparse-grid regime (mean cell
-occupancy ~2.5, hot near-sensor cells): `auto` engine selection must pick
-the capacity-free pooled engine (ops/fused_pool.py) on TPU, NOT the
-dense-scan fused engine (whose single full-width prepack would be
-gigabytes here) nor the XLA grid engine (whose 27*capacity windows are
-~98% padding at this occupancy — measured 8.0 vs 2.5 s/pair).
+occupancy ~2.5, hot near-sensor cells): the dense-scan fused engine's
+single full-width prepack would be gigabytes here, and the XLA grid
+engine's 27*capacity windows are ~98% padding at this occupancy; `auto`
+takes the engine core/backend.py names for the platform.
 
 Usage: python benchmarks/bench_kitti.py [--points 131072] [--iters 10]
        [--backend cpu]
@@ -23,7 +22,7 @@ import numpy as np
 from common import emit
 
 
-def main():
+def parse_args():
     ap = argparse.ArgumentParser()
     ap.add_argument("--points", type=int, default=131_072)
     ap.add_argument("--iters", type=int, default=10)
@@ -32,26 +31,14 @@ def main():
     ap.add_argument("--max_overflow", type=int, default=4096,
                     help="hot-cell overflow budget (params.grid_max_overflow)")
     args = ap.parse_args()
+    return args
 
-    if args.backend:
-        import jax
 
-        jax.config.update("jax_platforms", args.backend)
-
-    from probabilistic_point_clouds_registration_tpu.core.params import (
-        RegistrationParams,
-    )
+def kitti_pair(points: int = 131_072):
+    """The benchmark's KITTI-like (source, target) pair."""
     from probabilistic_point_clouds_registration_tpu.io.synthetic import kitti_like
-    from probabilistic_point_clouds_registration_tpu.models.registration import (
-        ProbabilisticRegistration,
-    )
-    from probabilistic_point_clouds_registration_tpu.utils.compile_cache import (
-        enable_persistent_compilation_cache,
-    )
 
-    enable_persistent_compilation_cache()
-
-    tgt = kitti_like(args.points)
+    tgt = kitti_like(points)
     theta = 0.01  # ~typical inter-scan rotation at 10 Hz
     rot = np.array(
         [
@@ -61,13 +48,43 @@ def main():
         ]
     )
     src = tgt @ rot.T + np.array([0.8, 0.1, 0.02])  # ~1 m ego-motion
+    return src, tgt
 
-    params = RegistrationParams(
-        max_neighbours=20, dof=5.0, radius=0.5, n_iter=args.iters,
-        cost_drop_thresh=-1.0, dtype="float32", pad_multiple=4096,
-        max_inner_iterations=50, outer_chunk=args.iters,
-        grid_max_overflow=args.max_overflow,
+
+def kitti_params(iters: int = 10, max_overflow: int = 4096, **overrides):
+    """The benchmark's registration parameters (``overrides`` replace
+    fields, e.g. ``dtype`` or ``search_impl`` for a reference run)."""
+    from probabilistic_point_clouds_registration_tpu.core.params import (
+        RegistrationParams,
     )
+
+    fields = dict(
+        max_neighbours=20, dof=5.0, radius=0.5, n_iter=iters,
+        cost_drop_thresh=-1.0, dtype="float32", pad_multiple=4096,
+        max_inner_iterations=50, outer_chunk=iters,
+        grid_max_overflow=max_overflow,
+    )
+    fields.update(overrides)
+    return RegistrationParams(**fields)
+
+
+def main():
+    args = parse_args()
+    if args.backend:
+        import jax
+
+        jax.config.update("jax_platforms", args.backend)
+
+    from probabilistic_point_clouds_registration_tpu.models.registration import (
+        ProbabilisticRegistration,
+    )
+    from probabilistic_point_clouds_registration_tpu.utils.compile_cache import (
+        enable_persistent_compilation_cache,
+    )
+
+    enable_persistent_compilation_cache()
+    src, tgt = kitti_pair(args.points)
+    params = kitti_params(args.iters, args.max_overflow)
 
     def run_once():
         t0 = time.perf_counter()

@@ -19,16 +19,11 @@ import numpy as np
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-# Every emitted record also appends here (with a timestamp + backend), so
-# the round's current-state table is GENERATED from the same measurements
-# the docs cite (benchmarks/current_state.py) instead of hand-copied —
-# round-4 verdict weak #7 (claim surfaces drifting apart). NOTE: the
-# default path is git-tracked (deliberate — the log IS the round's
-# measurement artifact), so running any benchmark dirties the checkout;
-# set PCR_BENCH_LOG to keep ad-hoc runs out of the committed record
-# (current_state.py filters to TPU-backend records either way).
+# Every emitted record also appends here (with a timestamp + backend). The
+# default file is listed in .gitignore, so running a benchmark never dirties
+# the checkout; PCR_BENCH_LOG points it elsewhere.
 RESULTS_LOG = Path(
-    os.environ.get("PCR_BENCH_LOG", REPO / "benchmarks" / "RESULTS_r05.jsonl")
+    os.environ.get("PCR_BENCH_LOG", REPO / "benchmarks" / "results.jsonl")
 )
 
 

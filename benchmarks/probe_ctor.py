@@ -101,7 +101,7 @@ def main():
         t2 = time.perf_counter()
         demand = fp.estimate_pool_demand_rows(plan, src)
         t3 = time.perf_counter()
-        pool = fp.build_pool_prepack(grid, tg, plan=plan, k=20)
+        pool = fp.build_pool_prepack(grid, tg, plan=plan)
         jax.block_until_ready(pool.pool_idx)
         t4 = time.perf_counter()
         for key, val in (

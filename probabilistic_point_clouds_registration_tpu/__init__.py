@@ -1,11 +1,11 @@
-"""TPU-native probabilistic point-cloud registration.
+"""Probabilistic point-cloud registration in JAX, for NVIDIA GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of probabilistic data-association ICP
 (Agamennoni et al., IROS 2016) with the full capability surface of
 iralabdisco/probabilistic_point_clouds_registration: radius-capped soft data
 association, Student-t / Gaussian EM weighting, SE(3) Levenberg-Marquardt,
 voxel filtering, PCD I/O, CSV iteration reports, evaluation metrics, a
-flag-compatible CLI, and multi-device sharding for pod-scale clouds and
+flag-compatible CLI, and multi-device sharding for large clouds and
 sequences.
 """
 

@@ -16,7 +16,7 @@ from pathlib import Path
 
 import numpy as np
 
-from .core.params import RegistrationParams
+from .core.params import SEARCH_IMPLS, RegistrationParams
 from .io.pcd import load_pcd, save_pcd
 from .models.registration import ProbabilisticRegistration
 from .utils.eval import calculate_mse
@@ -25,7 +25,7 @@ from .utils.eval import calculate_mse
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="prob-point-clouds-registration-tpu",
-        description="Probabilistic point cloud registration (TPU-native)",
+        description="Probabilistic point cloud registration (JAX, GPU)",
     )
     p.add_argument("source_file_name", help="The path of the source point cloud")
     p.add_argument("target_file_name", help="The path of the target point cloud")
@@ -73,13 +73,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="The path of the ground truth for the source cloud, if available",
     )
     p.add_argument("--dump", action="store_true", help="Dump registration data to file")
-    # --- TPU-native extensions (no reference counterpart) -------------------
+    # --- device extensions (no reference counterpart) ----------------------
     p.add_argument("--dtype", default="float32", choices=["float32", "float64"],
                    help="device compute dtype")
     p.add_argument("--backend", default=None,
                    help="JAX platform override (e.g. cpu) for local runs")
-    p.add_argument("--search_impl", default="auto",
-                   choices=["auto", "grid", "brute", "pallas"],
+    p.add_argument("--search_impl", default="auto", choices=SEARCH_IMPLS,
                    help="data-association engine")
     p.add_argument("--outer_chunk", type=int, default=4,
                    help="outer iterations fused per device program (grid engine)")

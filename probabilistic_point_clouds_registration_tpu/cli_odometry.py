@@ -23,7 +23,7 @@ from .utils.eval import ate_rmse
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="prob-point-clouds-odometry-tpu",
-        description="Sequential scan-to-scan probabilistic registration (TPU-native)",
+        description="Sequential scan-to-scan probabilistic registration (JAX, GPU)",
     )
     p.add_argument("scan_dir", help="Directory of .pcd scans (sorted by name) or a glob")
     p.add_argument("-o", "--output", default="trajectory.json",

@@ -2,7 +2,7 @@
 
 Field-for-field mirror of the reference config struct
 (include/prob_point_cloud_registration/prob_point_cloud_registration_params.hpp:5-18),
-plus TPU-specific knobs (dtype, padding, device mesh) that have no reference
+plus device knobs (dtype, padding, search engine) that have no reference
 counterpart because the reference is a single-threaded CPU library.
 """
 from __future__ import annotations
@@ -10,6 +10,9 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Optional, Tuple
+
+SEARCH_IMPLS = ("auto", "brute", "grid", "fused", "pool")
+SEARCH_SELECTS = ("auto", "topk", "hier", "approx")
 
 
 @dataclasses.dataclass
@@ -48,16 +51,18 @@ class RegistrationParams:
     min_relative_decrease: float = 1e-3
     use_nonmonotonic_steps: bool = True  # ...cc:90
 
-    # --- TPU-native knobs ----------------------------------------------------
+    # --- device knobs ------------------------------------------------------
     dtype: str = "float32"
     # Pad source/target point counts to multiples of this for static shapes.
     pad_multiple: int = 256
-    # Neighbor-search engine: "auto" (fused grouped Pallas engine on dense
-    # TPU scans, width-class pooled engine on sparse ones, hash grid when
-    # profitable, else brute force) | "brute" (always the streaming tiled
-    # engine) | "grid" | "fused" (force the grouped Pallas engine) | "pool"
-    # (force the capacity-free pooled engine — the sparse/LiDAR path;
-    # forced engines run interpret-mode off-TPU — tests only).
+    # Neighbor-search engine: "auto" (the engine core/backend.py names for
+    # the platform, with brute force when the candidate set is close to the
+    # whole target) | "brute" (the streaming tiled engine; the exact reference)
+    # | "grid" (XLA hash-grid engine) | "fused" (grouped engine over one
+    # full-width window prepack) | "pool" (capacity-free pooled engine:
+    # width-class window pools). The fused and pooled engines select
+    # through fused_grid.select_windows (Pallas kernel for wide windows,
+    # plain XLA for narrow ones).
     search_impl: str = "auto"
     # Outer iterations fused into one device program (lax.scan) when the grid
     # engine is active; the host syncs once per chunk. 1 disables fusion.
@@ -69,9 +74,10 @@ class RegistrationParams:
     # near-sensor LiDAR cell would otherwise force capacity 512 for every
     # source). 0 = pad to the hottest cell (no overflow pass).
     grid_max_overflow: int = 4096
-    # Candidate k-selection inside the grid engine: "auto" | "topk" |
-    # "pallas" | "approx" (lax.approx_max_k, recall ~0.99 — faster, neighbor
-    # sets may differ from FLANN's at the k-th slot).
+    # Candidate k-selection inside the grid engine: "auto" (the backend's
+    # choice for the grid's bucket capacity) | "topk" | "hier" | "approx" (lax.approx_max_k,
+    # recall ~0.99 — faster, neighbor sets may differ from FLANN's at the
+    # k-th slot).
     search_select: str = "auto"
     # Tile size over the target axis in the streaming top-k search.
     search_target_tile: int = 2048
@@ -97,3 +103,13 @@ class RegistrationParams:
             raise ValueError("dof must be positive (inf selects the Gaussian model)")
         if self.radius <= 0:
             raise ValueError("radius must be positive")
+        if self.search_impl not in SEARCH_IMPLS:
+            raise ValueError(
+                f"search_impl must be one of {SEARCH_IMPLS}: "
+                f"{self.search_impl!r}"
+            )
+        if self.search_select not in SEARCH_SELECTS:
+            raise ValueError(
+                f"search_select must be one of {SEARCH_SELECTS}: "
+                f"{self.search_select!r}"
+            )

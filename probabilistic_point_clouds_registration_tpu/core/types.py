@@ -1,9 +1,9 @@
-"""Dense, static-shape data structures for the TPU pipeline.
+"""Dense, static-shape data structures for the device pipeline.
 
 The reference stores data association as a row-major sparse matrix whose
 *structure* (not values) drives the EM weight update
 (src/prob_point_cloud_registration.cc:69-83, probabilistic_weights.hpp:48-105).
-On TPU that becomes a dense padded ``(N, K)`` neighbor table: indices,
+On the device that becomes a dense padded ``(N, K)`` neighbor table: indices,
 squared distances, and a validity mask — XLA-friendly static shapes with
 masked semantics identical to the sparse ones (a masked slot contributes
 nothing, like an absent sparse entry).
@@ -49,7 +49,7 @@ def bucket_rows(n: int, floor: int = 64, step_bits: int = 4) -> int:
     similar geometry, so per-pair jit programs are compiled once per
     sequence instead of once per pair. Sizes that JITTER across scans of
     one sequence right at a bucket boundary should use ``step_bits=3``
-    (~25% steps): a KITTI-like sequence alternated one segment band
+    (~25% steps): a KITTI-like sequence alternated one pool class
     between 26624 and 28672 padded windows, recompiling the ~minutes
     KITTI-scale scan program every OTHER pair — the coarser bucket eats
     the jitter for a few hundred KB of dead pool rows.

@@ -1,6 +1,6 @@
 """Inner EM solve: weighted nonlinear least squares on SE(3).
 
-TPU-native replacement for the reference's Ceres problem
+Device-native replacement for the reference's Ceres problem
 (prob_point_cloud_registration_iteration.hpp:21-78): one residual block per
 correspondence, shared (quaternion[4], translation[3]) parameters, per-term
 weights refreshed by an EM E-step after *every* Levenberg-Marquardt iteration
@@ -47,6 +47,11 @@ import jax.numpy as jnp
 from ..core.se3 import quat_rotate, quat_rotate_points
 from ..ops.weights import update_weights
 
+# Every f32 contraction over points runs at full f32 precision: a GPU may
+# otherwise run an f32 dot in TF32 (~3 significant digits), which at LiDAR
+# coordinate scales (+-75 m) corrupts H and g.
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 _MAX_TRUST_REGION_RADIUS = 1e16
 _MIN_TRUST_REGION_RADIUS = 1e-32
 _MAX_CONSECUTIVE_NONMONOTONIC_STEPS = 5
@@ -58,9 +63,9 @@ class LMConfig(NamedTuple):
 
     ``axis_name``: when set, the solver runs SPMD inside ``shard_map`` with
     source rows sharded over that mesh axis; the 7x7 normal equations, the
-    gradient, and the scalar cost are reduced with ``lax.psum`` over ICI so
+    gradient, and the scalar cost are reduced with ``lax.psum`` over the device mesh so
     every device steps the identical replicated (q, t) iterate. This is the
-    TPU-native replacement for Ceres's OpenMP-threaded residual evaluation
+    Device-native replacement for Ceres's OpenMP-threaded residual evaluation
     (src/prob_point_cloud_registration.cc:98)."""
 
     dof: float = 5.0
@@ -125,7 +130,7 @@ class LMResult(NamedTuple):
 
 def _residuals(q, t, source, targets):
     """r_ij = y_ij - (R(q) x_i + t); source (N,3), targets (N,K,3)."""
-    moved = quat_rotate_points(q, source) + t  # (N, 3), MXU layout
+    moved = quat_rotate_points(q, source) + t  # (N, 3)
     return targets - moved[:, None, :]
 
 
@@ -155,12 +160,12 @@ def _normal_equations(q, t, source, targets, w, mask, axis_name=None):
     # A: (N, 3, 4) Jacobian of the scale-invariant rotation wrt q.
     A = jax.jacfwd(lambda qq: quat_rotate(qq, source))(q)
 
-    h_qq = jnp.einsum("n,nia,nib->ab", sw, A, A)
-    h_qt = jnp.einsum("n,nba->ab", sw, A)  # (4, 3): A_i^T summed
+    h_qq = jnp.einsum("n,nia,nib->ab", sw, A, A, precision=_HIGHEST)
+    h_qt = jnp.einsum("n,nba->ab", sw, A, precision=_HIGHEST)  # (4, 3)
     h_tt = jnp.sum(sw) * jnp.eye(3, dtype=source.dtype)
     H = jnp.block([[h_qq, h_qt], [h_qt.T, h_tt]])
 
-    g_q = -jnp.einsum("nba,nb->a", A, m)
+    g_q = -jnp.einsum("nba,nb->a", A, m, precision=_HIGHEST)
     g_t = -jnp.sum(m, axis=0)
     g = jnp.concatenate([g_q, g_t])
     if axis_name is not None:
@@ -206,10 +211,10 @@ def _estep_moments(q, t, source, targets, mask, dof, dimension, axis_name=None):
     cost = 0.5 * jnp.sum(wm * e2)
     stats = _Moments(
         m0=jnp.sum(sw),
-        m1=sw @ source,
-        m2=jnp.einsum("n,na,nb->ab", sw, source, source),
+        m1=jnp.dot(sw, source, precision=_HIGHEST),
+        m2=jnp.einsum("n,na,nb->ab", sw, source, source, precision=_HIGHEST),
         sm=jnp.sum(m, axis=0),
-        smx=jnp.einsum("na,nb->ab", m, source),
+        smx=jnp.einsum("na,nb->ab", m, source, precision=_HIGHEST),
         cost=cost,
     )
     if axis_name is not None:
@@ -280,6 +285,13 @@ def em_lm_solve(
         (params.initial_rotation / initial_translation, iteration.hpp:31-34).
       config: static LM configuration.
     """
+    # The O(1) algebra below (7x7 normal equations, step and cost-change
+    # dots) traces at full precision too.
+    with jax.default_matmul_precision("highest"):
+        return _em_lm_solve(source, targets, mask, q0, t0, config)
+
+
+def _em_lm_solve(source, targets, mask, q0, t0, config):
     dtype = source.dtype
     f = lambda v: jnp.asarray(v, dtype)
 

@@ -9,7 +9,7 @@ the last registered scan (the failure-recovery gap noted in SURVEY.md §5 —
 the reference has none; its durable outputs are only the aligned cloud and
 summary TXT, src/prob_point_cloud_registration_ex.cc:161-183).
 
-TPU efficiency notes:
+Device efficiency notes:
   * Scan clouds are padded to ``pad_multiple`` buckets, so consecutive scans
     of similar size reuse the same compiled registration step — one compile
     per size bucket, not per scan.

@@ -3,11 +3,11 @@
 The reference has no multi-scan machinery — sequences are registered pair by
 pair and drift accumulates unchecked (its durable outputs are per-pair only,
 src/prob_point_cloud_registration_ex.cc:161-183). This module closes that gap
-with a TPU-native global refinement: poses are nodes, odometry pairs and loop
+with a device-native global refinement: poses are nodes, odometry pairs and loop
 closures are edges with relative-SE(3) measurements, and the maximum-
 likelihood trajectory is found by damped Gauss-Newton.
 
-TPU-first design:
+Device-first design:
   * No sparse matrices. The Gauss-Newton system is solved matrix-free by
     conjugate gradients, with Hessian-vector products composed from one JVP
     and one VJP through the residual function — XLA fuses each matvec into a

@@ -2,7 +2,7 @@
 
 The reference's host runtime is C++ throughout (PCL PCD codec, VoxelGrid —
 src/prob_point_cloud_registration_ex.cc:111-136, prob_point_cloud_registration.cc:24-41).
-This package provides the TPU framework's equivalents: an LZF codec for PCD
+This package provides the framework's equivalents: an LZF codec for PCD
 ``binary_compressed`` bodies and a hash-grid voxel downsample, compiled from
 ``pcr_native.cpp`` on first use (g++, cached next to the source) and loaded
 via ctypes. Every entry point has a numpy/Python fallback so the framework
@@ -46,7 +46,7 @@ def load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if os.environ.get("PCR_TPU_DISABLE_NATIVE"):
+        if os.environ.get("PCR_DISABLE_NATIVE"):
             return None
         if not _LIB_PATH.exists() or _LIB_PATH.stat().st_mtime < _SRC.stat().st_mtime:
             if not _build():

@@ -1,4 +1,4 @@
-// Native host-runtime kernels for the TPU registration framework.
+// Native host-runtime kernels for the registration framework.
 //
 // The reference gets its host runtime from PCL/Boost C++ (PCD codec:
 // pcl::io::loadPCDFile at src/prob_point_cloud_registration_ex.cc:111-136;

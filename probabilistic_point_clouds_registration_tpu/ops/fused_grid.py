@@ -1,12 +1,12 @@
-"""Fused grouped grid search: cell-shared candidate windows + Pallas k-select.
+"""Fused grouped grid search: cell-shared candidate windows + k-select.
 
-The XLA grid engine (ops/grid.py) pays two HBM taxes every outer iteration on
-a dense scan like the 35k bench pair:
+The XLA grid engine (ops/grid.py) pays two device-memory taxes every outer
+iteration on a dense scan like the 35k bench pair:
 
   * the candidate gather moves (N, 27, capacity) whole-bucket rows — ~1 GB of
-    768 B-granularity random gathers (~30 ms measured on a v5e), and
-  * ``lax.top_k`` over the (N, 27*capacity) distance matrix (~35 ms) — a
-    20-round min-extraction at HBM bandwidth.
+    768 B-granularity random gathers, and
+  * ``lax.top_k`` over the (N, 27*capacity) distance matrix, ~90% of whose
+    lanes are bucket padding.
 
 This engine exploits the fact that all sources in the same grid cell share
 the *same* 27-cell candidate neighborhood (the reference's kd-tree pays this
@@ -17,12 +17,11 @@ cost per query instead — src/prob_point_cloud_registration.cc:72-81):
      provably has zero in-radius neighbors), the full 27-neighborhood
      candidate window as contiguous (3, L) coordinate + (L,) index rows.
   2. Per iteration (all device-side, inside jit): bucket the moved sources
-     by cell, group same-cell sources into G=8-row blocks (G = the f32
-     sublane count, so the in-kernel candidate broadcast is tile-aligned),
-     gather one prepacked window per *group* (large contiguous rows, ~4x
-     less traffic than per-source gathers), and
-  3. run a Pallas kernel that recomputes distances in VMEM and extracts the
-     k nearest per source with a min-extraction loop that never touches HBM.
+     by cell and group same-cell sources into G=8-row blocks, so one window
+     serves a whole group (~4x less traffic than per-source windows), and
+  3. select the k nearest per source from the group's window
+     (:func:`select_windows`: the Pallas kernel of ops/select_kernel.py for
+     wide windows, plain XLA for narrow ones).
 
 Selection semantics are identical to the XLA engines: k smallest f32
 distances within ``radius``, ascending, ties broken by candidate-slot order
@@ -38,53 +37,19 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
+from ..core import backend
 from ..core.types import Correspondences, bucket_rows as _bucket_rows, pow2 as _pow2, round_up
+from .select_kernel import kernel_select
 
-# Sources per cell-pure group == f32 sublane count: the in-kernel
-# window-to-rows broadcast then maps exactly onto sublane replication.
+# Sources per cell-pure group: one candidate window serves GROUP rows.
 GROUP = 8
-# Groups processed per Pallas grid step (bounds VMEM at ~6 MB/step).
+# Granularity of every row and class budget, in groups: budgets are
+# multiples of it, so the select kernel's per-program groups
+# (select_kernel.KERNEL_GROUPS, a divisor) tile every pass exactly.
 BLOCK_GROUPS = 16
 # Dead-candidate coordinate sentinel: squared distances overflow any radius.
 _BIG = np.float32(1e30)
-# Row-meta encoding for lane 3 of the padded source rows: a FLOAT-exact
-# integer (max ~263k << 2^24, so it survives f64 -> f32 casts) packing the
-# valid flag and the row's segment lane bounds in 16-lane units:
-#   meta = valid | (lo/16) << 1 | (hi/16) << 10      (lo % 16 == 0;
-#                                                      hi rounded UP to 16)
-# Segment factors are planned so every F > 1 segment width is a multiple of
-# 16 (ops/fused_pool._plan_segment_bands); F = 1 rows use lo = 0 and a
-# rounded-up hi, where the extra lanes are dead padding anyway.
-META_UNIT = 16
-
-
-def pack_row_meta(valid, lo, hi):
-    """Pack (valid, lo, hi) into the float-integer row meta (see META_UNIT).
-
-    ``lo`` must be a multiple of META_UNIT; ``hi`` is rounded up to one.
-    Works on numpy or jax int arrays; returns the same backend's array.
-    """
-    np_mod = jnp if isinstance(valid, jnp.ndarray) else np
-    hi16 = -(-np_mod.asarray(hi) // META_UNIT)
-    return (
-        np_mod.asarray(valid).astype(np_mod.int32)
-        + ((np_mod.asarray(lo) // META_UNIT) << 1)
-        + (hi16 << 10)
-    )
-
-
-def _unpack_row_meta(v):
-    """Kernel-side inverse of :func:`pack_row_meta` (f32 column -> ints)."""
-    vi = v.astype(jnp.int32)
-    valid = (vi & 1) > 0
-    lo = ((vi >> 1) & 511) << 4
-    hi = (vi >> 10) << 4
-    return valid, lo, hi
-
-
 class PrepackedGrid(NamedTuple):
     """Per-pair fused-search state (device arrays unless noted).
 
@@ -104,16 +69,12 @@ class PrepackedGrid(NamedTuple):
     cand_xyz: jnp.ndarray
     cand_idx: jnp.ndarray
     width_lut: jnp.ndarray  # (UD+1,) int32 per-window kernel width (lanes)
-    union_lut: jnp.ndarray  # (UD+1,) int32 real candidate union per window
     lut_d: jnp.ndarray
     origin_d: jnp.ndarray
     dims_d: jnp.ndarray
     n_lanes: int
     n_dilated: int
     cell_size: float
-    # Expected-rounds hint: True when enough windows have real unions below
-    # a typical k that the counted extraction loop beats the static unroll.
-    small_unions: bool = False
 
 
 def dilate_cells_host(
@@ -215,7 +176,7 @@ def dilate_cells_host(
         # grouped in row order every iteration, so this makes the group
         # sequence width-monotone: each select-kernel block then runs at
         # (roughly) its own real width instead of the global maximum — the
-        # per-block width predication in _select_kernel.
+        # kernel's chunk count follows its block's widest window.
         perm = np.argsort(-union, kind="stable").astype(np.int32)
         nrows = nrows[perm]
         union = union[perm]
@@ -244,11 +205,6 @@ def dilate_cells_host(
         "max_union": max_union,
         "union": union,  # (UD,) descending real candidate counts
         "width_lut": width_lut,  # (UD+1,) int32
-        # Real (unpadded) candidate union per window: bounds the number of
-        # k-extraction rounds a block can possibly need (dead row = 0).
-        "union_lut": np.concatenate(
-            [union.astype(np.int32), np.zeros((1,), np.int32)]
-        ),
     }
     if dense_lut:
         lut_d = np.full((prod_d,), -1, dtype=np.int32)
@@ -361,13 +317,12 @@ def _build_prepack_dev(bucket_pts, bucket_idx, base_e, d_cells_e, off_e,
     return cand_xyz, cand_idx, lut_d
 
 
-def build_prepack(grid_host: dict, device_grid, k: int = 20) -> PrepackedGrid | None:
+def build_prepack(grid_host: dict, device_grid) -> PrepackedGrid | None:
     """Build the per-pair fused-search state.
 
     Args:
       grid_host: dict from ops.grid.build_grid_host (numpy arrays).
       device_grid: the HashGrid already on device (bucket tensors reused).
-      k: expected neighbour count — only tunes the extraction-loop hint.
     """
     dil = dilate_cells_host(grid_host, dense_lut=False)
     if dil is None:
@@ -376,8 +331,8 @@ def build_prepack(grid_host: dict, device_grid, k: int = 20) -> PrepackedGrid | 
     # Packed lane width: the largest real candidate union, never more than
     # the raw 27*capacity window — bucketed at ~12.5% granularity (128-lane
     # floor) so scan-to-scan max-union noise doesn't recompile the pair
-    # programs; dead lanes past the real union cost nothing in the kernel
-    # (width predication) and <=12.5% extra prepack gather.
+    # programs; the select reads only lanes up to each window's own width
+    # (width_lut), so dead lanes cost <=12.5% extra prepack gather.
     n_lanes = min(
         round_up(27 * capacity, 128),
         _bucket_rows(max(dil["max_union"], 128), 128),
@@ -396,8 +351,6 @@ def build_prepack(grid_host: dict, device_grid, k: int = 20) -> PrepackedGrid | 
     prod_e_pad = _pow2(dil["prod_e"])
     width_lut = np.zeros((ud_pad + 1,), np.int32)
     width_lut[:ud] = np.minimum(dil["width_lut"][:ud], n_lanes)
-    union_lut = np.zeros((ud_pad + 1,), np.int32)
-    union_lut[:ud] = dil["union_lut"][:ud]
     dev = jax.device_put(
         {
             "base_e": pad1(
@@ -418,7 +371,6 @@ def build_prepack(grid_host: dict, device_grid, k: int = 20) -> PrepackedGrid | 
                 np.dtype(device_grid.bucket_pts.dtype)
             ),
             "width_lut": width_lut,
-            "union_lut": union_lut,
         }
     )
     cand_xyz, cand_idx, lut_d = _build_prepack_dev(
@@ -439,203 +391,26 @@ def build_prepack(grid_host: dict, device_grid, k: int = 20) -> PrepackedGrid | 
         cand_xyz=cand_xyz,
         cand_idx=cand_idx,
         width_lut=dev["width_lut"],
-        union_lut=dev["union_lut"],
         lut_d=lut_d,
         origin_d=dev["origin_d"],
         dims_d=dev["dims_d"],
         n_lanes=n_lanes,
         n_dilated=dil["n_dilated"],
         cell_size=grid_host["cell_size"],
-        small_unions=_small_unions(dil["union"], k),
     )
 
 
-def _small_unions(union: np.ndarray, k: int) -> bool:
-    """True when the counted extraction loop is expected to beat the
-    static unroll: the loop saves (k - min(union, k)) rounds per block but
-    costs ~15% per executed round (measured 6.29 -> 7.24 ms/iter on the
-    dense 35k pair, 70.3 -> 60.4 on sparse KITTI)."""
-    if union.size == 0:
-        return False
-    return bool(np.mean(np.minimum(union, k)) < 0.75 * k)
-
-
-def _width_limits(n_lanes: int, max_branches: int = 8) -> list[int]:
-    """Ascending lane-width limits for the kernel's predicated branches."""
-    if n_lanes <= 128:
-        # Sub-128 windows still occupy a full 128-lane VPU row; one branch.
-        return [n_lanes]
-    nch = n_lanes // 128
-    if nch <= max_branches:
-        return [128 * c for c in range(1, nch + 1)]
-    step = round_up(n_lanes // max_branches, 128)
-    limits = list(range(step, n_lanes, step))
-    return limits + [n_lanes]
-
-
-def _select_kernel(wb_ref, ub_ref, xyz_ref, idx_ref, src_ref, outd_ref,
-                   outi_ref, *outp_refs, k, kp, r2, n_lanes, dyn_rounds):
-    """Distances + k-nearest extraction for BLOCK_GROUPS candidate windows.
-
-    All arrays live in VMEM; the 20-round min-extraction that costs ~35 ms
-    at HBM bandwidth in lax.top_k runs at VPU speed here.
-
-    The extraction cost is proportional to the processed lane width, and the
-    prepack sorts windows by descending REAL union width, so each block runs
-    exactly one predicated branch sized to its own max width (``wb_ref``,
-    SMEM) instead of the global maximum. Lanes beyond a window's union are
-    dead (d2 = inf) so narrower processing is bit-exact. Width-0 blocks
-    (group-budget padding beyond the real source count) write empty results
-    without touching the window at all. Loop-timed A/B on the 35k bench pair
-    (384 lanes): 6.82 -> 6.20 ms/iter (~9% — the extraction loop is no longer
-    the dominant phase at compacted widths; the win grows with lane count).
-
-    ``src_ref`` rows are (bs, 8): xyz + valid flag + the row's SEGMENT lane
-    bounds [lo, hi) in lanes 4-5 (+ 2 spare). Segment-packed pool rows
-    (ops/fused_pool.py) put F narrow windows side by side in one row of
-    lanes; each source row's candidates then live in its own lane segment,
-    and the mask below makes that exact. Unsegmented rows carry lo=0,
-    hi=inf, so the mask is a no-op for them. Candidate lane order within a
-    segment equals the window's candidate enumeration, so the global-lane
-    tie-break used by the extraction loop preserves the shared
-    (neighbor-offset, slot) tie contract per source.
-    """
-    bg = xyz_ref.shape[0]
-    bs = bg * GROUP
-    # Optional outputs 3-5: the selected neighbors' coordinates as THREE
-    # (BS, kp) planes (x, y, z). Emitting them here (they are already in
-    # VMEM) saves the caller a 12 B-granularity random gather of
-    # target[indices] afterwards; separate planes rather than one
-    # (BS, 3, kp) block keep every write in the kernel's native 2-D layout
-    # (the stacked form paid a per-block relayout).
-    # Finite sentinel (not inf: the `m < big` found-test must be able to
-    # fail). Dead-slot coordinates are 1e30 so their d2 overflows to inf,
-    # which the `live` mask then maps back onto this sentinel.
-    big = jnp.float32(3e38)
-    # Whole-array 1-D SMEM ref indexed by program id (2-D SMEM arrays get
-    # lane-padded to 128 — 2.8 MB > the 1 MB SMEM budget at KITTI-scale
-    # block counts; Mosaic's (8,128) rule also forbids a (1,1) block).
-    wb = wb_ref[pl.program_id(0)]
-    # Dynamic extraction-round bound: a block whose widest window holds ub
-    # real candidates can never fill more than ub of the k slots, so the
-    # min-extraction loop runs min(k, ub) trips instead of k. Rounds past
-    # exhaustion never write (the `m < big` gate), so this is bit-exact.
-    # At KITTI scale the dominant narrow class has unions of 1-32 against
-    # k=20 — most blocks run a fraction of the static trip count.
-    rounds = jnp.minimum(jnp.int32(k), ub_ref[pl.program_id(0)])
-    col = lax.broadcasted_iota(jnp.int32, (bs, kp), 1)
-
-    @pl.when(wb == 0)
-    def _dead_block():
-        outd_ref[:] = jnp.full((bs, kp), big, jnp.float32)
-        outi_ref[:] = jnp.full((bs, kp), -1, jnp.int32)
-        for ref in outp_refs:
-            ref[:] = jnp.zeros((bs, kp), jnp.float32)
-
-    def extract(lim: int):
-        def rep(x):  # (BG, lim) -> (BS, lim): window row j serves rows 8j..8j+7
-            return jnp.broadcast_to(x[:, None, :], (bg, GROUP, lim)).reshape(
-                bs, lim
-            )
-
-        cx = rep(xyz_ref[:, 0, :lim])
-        cy = rep(xyz_ref[:, 1, :lim])
-        cz = rep(xyz_ref[:, 2, :lim])
-        ci = rep(idx_ref[:, :lim])
-        sx = src_ref[:, 0:1]
-        sy = src_ref[:, 1:2]
-        sz = src_ref[:, 2:3]
-        valid, lo, hi = _unpack_row_meta(src_ref[:, 3:4])
-        dx = cx - sx
-        dy = cy - sy
-        dz = cz - sz
-        d2 = dx * dx + dy * dy + dz * dz
-        lane = lax.broadcasted_iota(jnp.int32, (bs, lim), 1)
-        seg = (lane >= lo) & (lane < hi)
-        live = (ci >= 0) & valid & (d2 <= r2) & seg
-        d2 = jnp.where(live, d2, big)
-        has_p = bool(outp_refs)
-        if dyn_rounds:
-            # Tighten the SMEM union bound with the block's real in-radius
-            # count: a row with c live candidates fills at most c slots, so
-            # the loop needs max-over-rows min(k, c) trips. The union bound
-            # counts every window candidate regardless of radius (KITTI:
-            # unions 20-50 vs ~9 in-radius on average), so this saves the
-            # difference at the cost of two VPU passes. Rounds past
-            # exhaustion never write (the m < big gate) — bit-exact.
-            live_rows = jnp.sum(live.astype(jnp.int32), axis=1)
-            rounds_eff = jnp.minimum(rounds, jnp.max(live_rows))
-        else:
-            rounds_eff = rounds
-        outd0 = jnp.full((bs, kp), big, jnp.float32)
-        outi0 = jnp.full((bs, kp), -1, jnp.int32)
-        if has_p:
-            op0 = (
-                jnp.zeros((bs, kp), jnp.float32),
-                jnp.zeros((bs, kp), jnp.float32),
-                jnp.zeros((bs, kp), jnp.float32),
-            )
-        else:
-            op0 = ()
-
-        def round_body(r, carry):
-            d2, outd, outi, *ops = carry
-            m = jnp.min(d2, axis=1, keepdims=True)
-            amin = jnp.min(jnp.where(d2 == m, lane, lim), axis=1, keepdims=True)
-            sel = lane == amin
-            chosen = jnp.sum(
-                jnp.where(sel, ci, 0), axis=1, keepdims=True, dtype=jnp.int32
-            )
-            d2 = jnp.where(sel, big, d2)
-            hit = (col == r) & (m < big)
-            outd = jnp.where(hit, m, outd)
-            outi = jnp.where(hit, chosen, outi)
-            if ops:
-                ops = tuple(
-                    jnp.where(
-                        hit,
-                        jnp.sum(jnp.where(sel, c, 0.0), axis=1, keepdims=True),
-                        op,
-                    )
-                    for op, c in zip(ops, (cx, cy, cz))
-                )
-            return (d2, outd, outi, *ops)
-
-        if dyn_rounds:
-            _, outd, outi, *ops = lax.fori_loop(
-                0, rounds_eff, round_body, (d2, outd0, outi0, *op0)
-            )
-        else:
-            # Static unroll: ~15% faster than the counted loop when blocks
-            # genuinely need all k rounds (dense scans) — Mosaic pipelines
-            # the unrolled rounds across VPU issue slots.
-            carry = (d2, outd0, outi0, *op0)
-            for r in range(k):
-                carry = round_body(r, carry)
-            _, outd, outi, *ops = carry
-        outd_ref[:] = outd
-        outi_ref[:] = outi
-        for ref, op in zip(outp_refs, ops):
-            ref[:] = op
-
-    limits = _width_limits(n_lanes)
-    lo = 0
-    for i, lim in enumerate(limits):
-        cond = (wb > lo) if i == len(limits) - 1 else (wb > lo) & (wb <= lim)
-        pl.when(cond)(partial(extract, lim))
-        lo = lim
-
-
 def _group_by_window(source, source_valid, lut_d, origin_d, dims_d, ud,
-                     radius, s_pad: int, n_lanes: int = 4096):
-    """Phases 1-2 of the fused engines: map each source to its window row and
-    sort same-window sources into cell-pure GROUP-row blocks.
+                     radius, s_pad: int):
+    """Phases 1-2 of the fused and pooled engines: map each source to its
+    window row and sort same-window sources into cell-pure GROUP-row blocks.
+
+    ``lut_d`` maps an extended-grid cell to its window row (-1: no
+    neighbours possible); ``ud`` is the dead window row.
 
     Returns (padded, step_rows, order, dst, overflow):
-      padded: (s_pad, 4) sorted sources + the packed row meta in lane 3
-        (pack_row_meta: valid flag + segment lane bounds — full-width here:
-        the dense engine packs one window per pool row; segment packing
-        lives in ops/fused_pool._group_by_row).
+      padded: (s_pad, 4) sorted sources, lane 3 the valid flag (1 for a
+        source, 0 for an unfilled slot).
       step_rows: (s_pad // GROUP,) window row per group (ud = dead window).
       order / dst: the sort permutation and each source's padded-row slot
         (callers un-sort the kernel outputs with these).
@@ -664,8 +439,8 @@ def _group_by_window(source, source_valid, lut_d, origin_d, dims_d, ud,
     # group, scatter nowhere (dst = s_pad is dropped), and _unsort_results
     # maps them to mask=False — exactly the result the kernel's dead
     # branch produced for them.
-    order = jnp.argsort(row, stable=True)
-    rs = row[order]
+    # One sort delivers both the permutation and the sorted keys.
+    rs, order = lax.sort_key_val(row, jnp.arange(n, dtype=jnp.int32))
     dead = rs == ud
     pos = jnp.arange(n, dtype=jnp.int32)
     starts = jnp.concatenate(
@@ -679,15 +454,9 @@ def _group_by_window(source, source_valid, lut_d, origin_d, dims_d, ud,
     overflow = jnp.sum(jnp.where(dst >= s_pad, 1, 0)) - jnp.sum(dead)
 
     src_sorted = source[order]
-    # Segment bound must cover the engine's FULL window width: the dense
-    # engine has no 4096-lane cap (capacity-driven widths regularly exceed
-    # it on near-sensor LiDAR cores), and the select kernel's segment mask
-    # silently drops any candidate past ``hi`` — a hardcoded 4096 here made
-    # lanes >= 4096 invisible (wrong neighbors, overflow=0).
-    meta = jnp.asarray(pack_row_meta(1, 0, n_lanes), dtype)
-    # Inverse-map + gather instead of a direct (N, 4) scatter — 2x on v5e
-    # (see ops/fused_pool._group_by_row for the A/B); unfilled slots gather
-    # the zero row (invalid meta).
+    # Inverse-map + gather instead of a direct (N, 4) scatter: an s32
+    # slot->source scatter + one 16 B-row gather; unfilled slots gather
+    # the zero row (valid flag 0).
     slot2src = (
         jnp.full((s_pad,), n, jnp.int32)
         .at[dst]
@@ -696,7 +465,7 @@ def _group_by_window(source, source_valid, lut_d, origin_d, dims_d, ud,
     src5 = jnp.concatenate(
         [
             jnp.concatenate(
-                [src_sorted, jnp.full((n, 1), meta, dtype)], axis=1
+                [src_sorted, jnp.ones((n, 1), dtype)], axis=1
             ),
             jnp.zeros((1, 4), dtype),
         ]
@@ -710,57 +479,86 @@ def _group_by_window(source, source_valid, lut_d, origin_d, dims_d, ud,
     return padded, step_rows, order, dst, overflow
 
 
-def _run_select(padded, win_xyz, win_idx, w_blk, u_blk, *, k, n_lanes, radius,
-                block_groups=BLOCK_GROUPS, interpret=False,
-                return_points=False, dyn_rounds=False):
-    """Invoke the Pallas select kernel over pre-gathered candidate windows."""
-    s_pad = padded.shape[0]
-    ng = s_pad // GROUP
-    kp = 32 if k <= 32 else round_up(k, 128)
-    kernel = partial(
-        _select_kernel, k=k, kp=kp, r2=np.float32(radius) ** 2,
-        n_lanes=n_lanes, dyn_rounds=dyn_rounds,
+def select_cols(k: int) -> int:
+    """Output columns of a select: k rounded up to a power of two >= 32."""
+    return max(32, 1 << (k - 1).bit_length())
+
+
+def _xla_class_select(rows4, win_xyz, win_idx, *, k, kp, radius,
+                      return_points):
+    """Plain-XLA select over pre-gathered windows: distances + ``lax.top_k``.
+
+    ``rows4``: (B*GROUP, 4) padded sources (xyz + the valid flag in lane
+    3), ``win_xyz``: (B, 3, w) per-group candidate
+    windows, ``win_idx``: (B, w). Returns (outd, outi, outp) at ``kp``
+    columns: the k smallest in-radius f32 squared distances per row,
+    ascending, with their target indices (-1 = empty) and, with
+    ``return_points``, the three coordinate planes of the chosen
+    candidates. ``lax.top_k`` on the negated distances breaks ties toward
+    the lower lane, so slots follow the (distance, lane) order of the
+    candidate enumeration; for w <= k it is a full stable sort.
+    """
+    b, _, w = win_xyz.shape
+    big = jnp.float32(3e38)
+    src = rows4.reshape(b, GROUP, 4).astype(jnp.float32)
+    wx = win_xyz.astype(jnp.float32)
+    # Same expression, in the same order, as the select kernel.
+    dx = wx[:, None, 0, :] - src[:, :, 0:1]
+    dy = wx[:, None, 1, :] - src[:, :, 1:2]
+    dz = wx[:, None, 2, :] - src[:, :, 2:3]
+    d2 = dx * dx + dy * dy + dz * dz  # (B, G, w)
+    live = (
+        (win_idx[:, None, :] >= 0)
+        & (src[:, :, 3:4] > 0)
+        & (d2 <= jnp.float32(radius) ** 2)
     )
-    bs = block_groups * GROUP
-    out_specs = [
-        pl.BlockSpec((bs, kp), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((bs, kp), lambda i: (i, 0), memory_space=pltpu.VMEM),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((s_pad, kp), jnp.float32),
-        jax.ShapeDtypeStruct((s_pad, kp), jnp.int32),
-    ]
-    if return_points:
-        for _ in range(3):
-            out_specs.append(
-                pl.BlockSpec((bs, kp), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM)
-            )
-            out_shape.append(
-                jax.ShapeDtypeStruct((s_pad, kp), jnp.float32)
-            )
-    outs = pl.pallas_call(
-        kernel,
-        grid=(ng // block_groups,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (block_groups, 3, n_lanes), lambda i: (i, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec((block_groups, n_lanes), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((bs, 4), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(w_blk, u_blk, win_xyz.astype(jnp.float32), win_idx,
-      padded.astype(jnp.float32))
-    if return_points:
-        return outs[0], outs[1], tuple(outs[2:5])
-    return outs[0], outs[1], None
+    d2 = jnp.where(live, d2, big)
+    kk = min(k, w)
+    negd, args = lax.top_k(-d2.reshape(b * GROUP, w), kk)
+    outd = -negd
+    found = outd < big
+    gargs = args.reshape(b, GROUP, kk)
+    outi = jnp.take_along_axis(
+        jnp.broadcast_to(win_idx[:, None, :], (b, GROUP, w)), gargs, axis=2
+    ).reshape(b * GROUP, kk)
+    outi = jnp.where(found, outi, -1)
+    pad = kp - kk
+    outd = jnp.pad(outd, ((0, 0), (0, pad)), constant_values=big)
+    outi = jnp.pad(outi, ((0, 0), (0, pad)), constant_values=-1)
+    if not return_points:
+        return outd, outi, None
+    pts = jnp.take_along_axis(
+        jnp.broadcast_to(wx[:, None, :, :], (b, GROUP, 3, w)),
+        gargs[:, :, None, :],
+        axis=3,
+    ).reshape(b * GROUP, 3, kk)
+    pts = jnp.where(found[:, None, :], pts, 0.0)
+    pts = jnp.pad(pts, ((0, 0), (0, 0), (0, pad)))
+    return outd, outi, tuple(pts[:, i, :] for i in range(3))
+
+
+def select_windows(rows4, pool_xyz, pool_idx, win, width_lut, *, k, radius,
+                   return_points, select_max_w):
+    """k-nearest select of every group's window, by the backend's choice.
+
+    ``rows4``: (B*GROUP, 4) padded sources, ``pool_xyz``: (R, 3, W) and
+    ``pool_idx``: (R, W) candidate windows, ``win``: (B,) window row of
+    each group, ``width_lut``: (R,) lanes up to each window's last live
+    candidate. Windows wider than ``select_max_w`` run the Pallas kernel
+    (ops/select_kernel.py), which reads the pool in place; narrower ones
+    gather their windows and select in XLA. Both give the same slots.
+    Returns (outd, outi, outp) at :func:`select_cols` columns.
+    """
+    kp = select_cols(k)
+    if pool_xyz.shape[-1] > select_max_w:
+        return kernel_select(
+            rows4, pool_xyz, pool_idx, win, width_lut, k=k, kp=kp,
+            radius=radius, return_points=return_points,
+        )
+    return _xla_class_select(
+        rows4, pool_xyz[win], pool_idx[win], k=k, kp=kp, radius=radius,
+        return_points=return_points,
+    )
 
 
 def _unsort_results(outd, outi, outp, order, dst, *, k, n, dtype):
@@ -790,8 +588,8 @@ def _unsort_results(outd, outi, outp, order, dst, *, k, n, dtype):
 
 @partial(
     jax.jit,
-    static_argnames=("k", "radius", "n_lanes", "interpret", "budget_rows", "dyn_rounds",
-                     "return_points"),
+    static_argnames=("k", "radius", "budget_rows", "return_points",
+                     "select_max_w"),
 )
 def fused_grid_search(
     source,
@@ -799,62 +597,39 @@ def fused_grid_search(
     cand_xyz,
     cand_idx,
     width_lut,
-    union_lut,
     lut_d,
     origin_d,
     dims_d,
     *,
     k: int,
     radius: float,
-    n_lanes: int,
-    interpret: bool = False,
     budget_rows: int | None = None,
     return_points: bool = False,
-    dyn_rounds: bool = False,
+    select_max_w: int = backend.SELECT_MAX_W,
 ):
-    """Radius-capped KNN via cell-grouped windows + the Pallas select kernel.
+    """Radius-capped KNN via cell-grouped windows + :func:`select_windows`.
 
-    Same contract as ops.grid.grid_radius_search. ``interpret=True`` runs the
-    kernel in the Pallas interpreter (CPU tests).
+    Same contract as ops.grid.grid_radius_search.
 
     Returns (Correspondences, overflow[, points]) where overflow > 0 means
     the group-row budget (``budget_rows``, default 2N) overflowed
     (pathologically scattered sources) and the caller must re-run the
     iteration with an XLA engine. ``return_points=True`` appends the selected
-    neighbors' coordinates (N, k, 3) — emitted by the kernel from VMEM, which
-    replaces the caller's 12 B-granularity ``target[indices]`` gather.
+    neighbors' coordinates (N, k, 3) from the select itself, which replaces
+    the caller's 12 B-granularity ``target[indices]`` gather.
     """
     n = source.shape[0]
     dtype = source.dtype
     ud = cand_idx.shape[0] - 1  # last row is the dead window
     s_pad = round_up(budget_rows or 2 * n, BLOCK_GROUPS * GROUP)
-    ng = s_pad // GROUP
 
     padded, step_rows, order, dst, overflow = _group_by_window(
         source, source_valid, lut_d, origin_d, dims_d, ud, radius, s_pad,
-        n_lanes=n_lanes,
     )
-
-    # 3. one window gather per group (contiguous multi-KB rows).
-    win_xyz = cand_xyz[step_rows]  # (NG, 3, L)
-    win_idx = cand_idx[step_rows]  # (NG, L)
-    # Per-block max kernel width (windows are width-sorted, so blocks are
-    # near-homogeneous); width 0 = all-padding block, skipped by the kernel.
-    w_blk = jnp.max(
-        width_lut[step_rows].reshape(ng // BLOCK_GROUPS, BLOCK_GROUPS),
-        axis=1,
+    outd, outi, outp = select_windows(
+        padded, cand_xyz, cand_idx, step_rows, width_lut, k=k,
+        radius=radius, return_points=return_points, select_max_w=select_max_w,
     )
-    u_blk = jnp.max(
-        union_lut[step_rows].reshape(ng // BLOCK_GROUPS, BLOCK_GROUPS),
-        axis=1,
-    )
-
-    outd, outi, outp = _run_select(
-        padded, win_xyz, win_idx, w_blk, u_blk, k=k, n_lanes=n_lanes,
-        radius=radius, interpret=interpret, return_points=return_points,
-        dyn_rounds=dyn_rounds,
-    )
-
     corr, pts = _unsort_results(
         outd, outi, outp, order, dst, k=k, n=n, dtype=dtype
     )

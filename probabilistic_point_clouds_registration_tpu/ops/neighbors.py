@@ -1,14 +1,15 @@
 """Radius-bounded K-nearest-neighbor search (data association).
 
-TPU-native replacement for the reference's per-point FLANN kd-tree radius
+Device-native replacement for the reference's per-point FLANN kd-tree radius
 search (src/prob_point_cloud_registration.cc:66-81: a kd-tree is rebuilt on
 the target every outer iteration, then each source point runs
 ``radiusSearch(radius, max_neighbours)`` returning up to K nearest neighbors
 within the radius, sorted by distance).
 
-A kd-tree is the wrong shape for a TPU: pointer chasing, dynamic traversal,
-no MXU work. Instead the (N_src x M_tgt) squared-distance problem is tiled
-blockwise — the cross term is a matmul that rides the MXU — with a streaming
+A kd-tree is the wrong shape for an accelerator: pointer chasing, dynamic
+traversal, no dense work. Instead the (N_src x M_tgt) squared-distance
+problem is tiled blockwise — the cross term is a matrix product — with a
+streaming
 top-K merge so the full distance matrix never materializes (the
 flash-attention pattern applied to K-selection). Results are exactly the K
 nearest within the radius, sorted ascending by distance: semantically equal
@@ -25,8 +26,9 @@ tie-class members on ~48% of rows there. Equal distances get equal E-step
 weights, so the EM cost surface is invariant to the choice; real
 (non-quantized) clouds tie with probability ~0.
 
-This file is the pure-XLA engine (works on CPU/TPU, used for tests and as
-fallback); ops/neighbors_pallas.py holds the hand-tiled Pallas kernel.
+This is the plain-XLA brute engine: the exact reference every other engine
+is tested against (in float64 it is the on-card reference of chip_smoke.py),
+and the engine for dense scans where a grid does not pay.
 """
 from __future__ import annotations
 
@@ -58,10 +60,14 @@ def _match_vma(x, *refs):
 
 
 def _pairwise_sq_dists(src: jnp.ndarray, tgt: jnp.ndarray) -> jnp.ndarray:
-    """(S, T) squared distances via the matmul expansion (MXU-friendly)."""
-    # Accumulate in at least f32 even for bf16 inputs (f64 stays f64).
+    """(S, T) squared distances via the matmul expansion."""
+    # Accumulate in at least f32 even for bf16 inputs (f64 stays f64), at
+    # full precision: a TF32 cross term would swamp the distance gaps.
     acc = jnp.promote_types(src.dtype, jnp.float32)
-    cross = jnp.dot(src, tgt.T, preferred_element_type=acc).astype(src.dtype)
+    cross = jnp.dot(
+        src, tgt.T, preferred_element_type=acc,
+        precision=jax.lax.Precision.HIGHEST,
+    ).astype(src.dtype)
     s2 = jnp.sum(src * src, axis=-1, keepdims=True)
     t2 = jnp.sum(tgt * tgt, axis=-1)[None, :]
     return jnp.maximum(s2 + t2 - 2.0 * cross, 0.0)
@@ -87,13 +93,13 @@ def topk_neighbors(
       k: neighbors per source point (static).
       source_valid / target_valid: bool validity masks for padded rows.
       source_tile / target_tile: static tile sizes for the streaming sweep.
-      exact: compute tile distances with the direct (s - t)^2 form (VPU)
-        instead of the matmul expansion (MXU). The expansion's f32 error is
+      exact: compute tile distances with the direct (s - t)^2 form
+        instead of the matmul expansion. The expansion's f32 error is
         ~eps * max coordinate magnitude squared, which at LiDAR scales
         (+-75 m -> ~1e-3 m^2) swamps millimeter-scale distance gaps and
         corrupts SELECTION, not just the reported values. Use for small
-        target sets (e.g. the hot-cell overflow merge) where MXU throughput
-        doesn't matter.
+        target sets (e.g. the hot-cell overflow merge) where matrix-unit
+        throughput doesn't matter.
 
     Returns:
       (indices (N, k) int32, sq_dists (N, k), found (N, k) bool), sorted

@@ -1,6 +1,6 @@
 """Fused EM E-step: probabilistic correspondence weights.
 
-TPU-native re-design of the reference's row-loop weight updater
+Device-native re-design of the reference's row-loop weight updater
 (probabilistic_weights.hpp:48-105): instead of iterating sparse rows, the
 whole (N, K) padded association table is processed as one fused vectorized
 expression — per-slot log-probability, masked row logsumexp, posterior

@@ -6,8 +6,8 @@ unit, src/prob_point_cloud_registration.cc:63-136): same constructor shape
 plus a ``mesh``, same ``align()`` / ``report()`` / ``transformation_history``
 / ``has_converged()`` surface, same CSV records and per-LM traces — not a
 bare one-step function. Per chunk of outer iterations the host dispatches
-ONE device program (make_sharded_pool_align_scan): the flagship pooled
-Pallas engine target-sharded over ``"targets"``, source rows and the 7x7
+ONE device program (make_sharded_pool_align_scan): the pooled engine
+target-sharded over ``"targets"``, source rows and the 7x7
 EM-LM normal equations psum-reduced over ``"points"``, and the reference
 stopping rule carried on device so converged pairs stop computing
 mid-chunk. The single-device bookkeeping (transform composition, stall
@@ -113,7 +113,6 @@ class DistributedRegistration(ProbabilisticRegistration):
             tp = 1
         sp = build_sharded_pool_host(
             target, params.radius, tp, num_valid=target.shape[0],
-            k=params.max_neighbours,
         )
         prepared = {
             "target_cloud": target,
@@ -140,7 +139,6 @@ class DistributedRegistration(ProbabilisticRegistration):
         params: RegistrationParams,
         mesh: Optional[jax.sharding.Mesh] = None,
         ground_truth_cloud: Optional[np.ndarray] = None,
-        interpret: Optional[bool] = None,
         layout: str = "auto",
         debug_replication: bool = False,
         prepared_target: Optional[dict] = None,
@@ -148,7 +146,7 @@ class DistributedRegistration(ProbabilisticRegistration):
         if layout not in ("auto", "targets", "points"):
             raise ValueError(f"layout must be auto|targets|points: {layout}")
         # Runtime replication assert on every chunk's merged results (the
-        # check_vma=False substitute for the Pallas path); cheap relative
+        # check_vma=False substitute for the pooled path); cheap relative
         # to the merge itself, but default-off in production.
         self._debug_replication = bool(debug_replication)
         # Shared host-side ctor pieces (base class): validation, streams,
@@ -158,8 +156,6 @@ class DistributedRegistration(ProbabilisticRegistration):
         self.mesh = mesh if mesh is not None else make_mesh()
         self._dp = self.mesh.shape[POINTS_AXIS]
         self._tp = self.mesh.shape[TARGETS_AXIS]
-        on_tpu = jax.default_backend() == "tpu"
-        self._interpret = (not on_tpu) if interpret is None else interpret
 
         if prepared_target is not None:
             # Target prep (voxel filter, layout choice, harmonized
@@ -215,9 +211,8 @@ class DistributedRegistration(ProbabilisticRegistration):
                     want = "targets"
             if want == "points" and self._tp > 1:
                 # Collapse every device onto the "points" axis (device
-                # order — and so ICI adjacency — is preserved; the targets
-                # axis becomes size 1 and the top-k merge degenerates to a
-                # no-op).
+                # order is preserved; the targets axis becomes size 1 and
+                # the top-k merge degenerates to a no-op).
                 devs = self.mesh.devices.reshape(-1)
                 self.mesh = make_mesh(devs.size, 1, devices=devs)
                 self._dp, self._tp = int(devs.size), 1
@@ -298,7 +293,6 @@ class DistributedRegistration(ProbabilisticRegistration):
                 params.radius,
                 self._tp,
                 num_valid=target.shape[0],
-                k=params.max_neighbours,
                 source_slices=slices,
             )
         if self._sp is None:
@@ -342,7 +336,6 @@ class DistributedRegistration(ProbabilisticRegistration):
             radius=p.radius,
             lm_config=lm,
             source_rows_per_shard=self._rows_per_shard,
-            interpret=self._interpret,
             budget_boost=self._pool_budget_boost,
             debug_replication=self._debug_replication,
             **self._conv_statics(),

@@ -5,9 +5,8 @@ every pair is INDEPENDENT, so a sequence of S scans is S-1 embarrassingly
 parallel registrations. The reference processes one pair per process
 (src/prob_point_cloud_registration_ex.cc); here the pairs are stacked on a
 batch axis, the full outer loop runs under ``vmap`` + ``lax.while_loop``
-entirely on device, and the batch axis is sharded across the mesh — the
-pair/scan-parallel axis of SURVEY.md §2's TPU mapping (analogue of
-data-parallel training batches, riding ICI/DCN).
+entirely on device, and the batch axis is sharded across the mesh (the
+analogue of data-parallel training batches).
 
 Convergence semantics: each pair carries the reference's stopping rule
 (src/prob_point_cloud_registration.cc:138-158 — max iterations, plus
@@ -17,9 +16,8 @@ with the previous drop) as per-pair state inside the batched while_loop.
 JAX's while_loop batching freezes finished pairs' state, so a converged
 pair's transform stops moving exactly where the sequential host loop would
 stop it, and the loop exits when every pair is done — no fixed-n_outer
-post-convergence drift or wasted full-batch iterations (round-1 VERDICT
-weakness #7). Trajectory equality with the sequential pipeline is asserted
-in tests/test_batch.py.
+post-convergence drift or wasted full-batch iterations. Trajectory
+equality with the sequential pipeline is asserted in tests/test_batch.py.
 
 Engines: ``search_impl="brute"`` streams the full target per pair;
 ``"grid"`` batches per-pair hash grids (common padded capacity/cell count)
@@ -35,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
+from ..core import backend
 from ..core.se3 import quat_multiply, quat_normalize, quat_rotate_points, unit_quat_rotate
 from ..models.em_lm import LMConfig, em_lm_solve
 from ..ops.neighbors import radius_search
@@ -236,8 +235,8 @@ def batched_pair_register_grid(
     jax.jit,
     static_argnames=(
         "k", "radius", "lm_config", "n_outer", "class_widths", "class_ends",
-        "class_budgets", "budget_rows", "interpret", "dyn_rounds",
-        "select_max_w", "cost_drop_thresh", "n_cost_drop_it",
+        "class_budgets", "budget_rows", "select_max_w", "cost_drop_thresh",
+        "n_cost_drop_it",
     ),
 )
 def batched_pair_register_pool(
@@ -245,8 +244,7 @@ def batched_pair_register_pool(
     source_valid: jnp.ndarray,  # (B, N)
     pool_xyz: tuple,  # per class: (B, n_c + 1, 3, W_c)
     pool_idx: tuple,  # per class: (B, n_c + 1, W_c)
-    width_lut: jnp.ndarray,  # (B, R_pad + 1) per-pool-row kernel widths
-    union_lut: jnp.ndarray,
+    width_lut: jnp.ndarray,  # (B, R_pad + 1) per-row select widths
     lut_d: jnp.ndarray,  # (B, prod_d_pad) packed grouping keys
     origin_d: jnp.ndarray,  # (B, 3)
     dims_d: jnp.ndarray,  # (B, 3)
@@ -259,18 +257,15 @@ def batched_pair_register_pool(
     class_ends: tuple,
     class_budgets: tuple,
     budget_rows: int,
-    interpret: bool = False,
-    dyn_rounds: bool = False,
-    select_max_w: int | None = None,
+    select_max_w: int = backend.SELECT_MAX_W,
     cost_drop_thresh: float = -1.0,
     n_cost_drop_it: int = 5,
 ) -> BatchedPairResult:
-    """Batched registration with per-pair capacity-free POOLED prepacks —
-    the flagship Pallas engine (ops/fused_pool.py), batch-harmonized to one
-    static geometry (plan_pool_host_group) so every pair shares one
-    program; the select kernel is vmapped over the batch. The kernel emits
-    the selected neighbors' coordinates, so no per-pair target cloud is
-    consulted inside the loop at all. Pairs whose runtime budget flag fires
+    """Batched registration with per-pair capacity-free POOLED prepacks
+    (ops/fused_pool.py), batch-harmonized to one static geometry
+    (plan_pool_host_group) so every pair shares one program; the select is
+    vmapped over the batch. It emits the selected neighbors' coordinates,
+    so no per-pair target cloud is consulted inside the loop at all. Pairs whose runtime budget flag fires
     report ``overflow > 0`` and must be redone on the grid engine."""
     from ..ops.fused_pool import fused_pool_search
 
@@ -278,14 +273,13 @@ def batched_pair_register_pool(
     q0 = jnp.array([1.0, 0.0, 0.0, 0.0], dtype)
     t0 = jnp.zeros((3,), dtype)
 
-    def one_pair(src, sv, pxyz, pidx, wl, ul, ld, od, dd):
+    def one_pair(src, sv, pxyz, pidx, wl, ld, od, dd):
         def search(moved):
             corr, overflow, pts = fused_pool_search(
-                moved, sv, pxyz, pidx, wl, ul, ld, od, dd,
+                moved, sv, pxyz, pidx, wl, ld, od, dd,
                 k=k, radius=radius, class_widths=class_widths,
                 class_ends=class_ends, class_budgets=class_budgets,
-                budget_rows=budget_rows, interpret=interpret,
-                return_points=True, dyn_rounds=dyn_rounds,
+                budget_rows=budget_rows, return_points=True,
                 select_max_w=select_max_w,
             )
             return pts, corr.mask, jnp.sum(corr.mask), overflow
@@ -294,8 +288,8 @@ def batched_pair_register_pool(
                            cost_drop_thresh, n_cost_drop_it, dtype)
 
     q, t, ic, fc, nc, it, ovf = jax.vmap(one_pair)(
-        sources, source_valid, pool_xyz, pool_idx, width_lut, union_lut,
-        lut_d, origin_d, dims_d,
+        sources, source_valid, pool_xyz, pool_idx, width_lut, lut_d,
+        origin_d, dims_d,
     )
     return BatchedPairResult(
         q=q, t=t, initial_costs=ic, final_costs=fc, num_correspondences=nc,
@@ -347,7 +341,18 @@ def _batched_grids_host(stack, counts, idx_tgt, radius):
     return bp, bi, luts, origins, dims, cap
 
 
-def _batched_pools_host(stack, counts, idx_tgt, radius, k, dtype,
+def _auto_pool(target, num_valid, radius) -> bool:
+    """Whether ``search_impl="auto"`` takes the pooled engine for scans
+    like ``target``: the backend's choice, where the scan has a grid."""
+    from ..ops.grid import build_grid_host
+
+    if backend.auto_engine() != "pool":
+        return False
+    g = build_grid_host(target, radius, num_valid=num_valid, buckets=False)
+    return g is not None
+
+
+def _batched_pools_host(stack, counts, idx_tgt, radius, dtype,
                         idx_src=None):
     """Per-pair POOLED prepacks harmonized to one static geometry
     (ops.fused_pool.plan_pool_host_group), stacked on the batch axis.
@@ -384,7 +389,7 @@ def _batched_pools_host(stack, counts, idx_tgt, radius, k, dtype,
     pres = {}
     for i, plan in zip(uniq_ids, plans):
         pre = _fp.build_pool_prepack(
-            grids[i], stack[i], dtype=np_dtype, plan=plan, k=k
+            grids[i], stack[i], dtype=np_dtype, plan=plan
         )
         if pre is None:
             return None
@@ -399,8 +404,6 @@ def _batched_pools_host(stack, counts, idx_tgt, radius, k, dtype,
     pool_idx = tuple(
         jnp.stack([r.pool_idx[c] for r in rows]) for c in range(n_classes)
     )
-    smw = _fp._select_max_w()
-    all_unions = np.concatenate([p["dil"]["union"] for p in plans])
     budget_rows = max(int(pres[i].budget_rows) for i in uniq_ids)
     if idx_src is not None:
         from ..core.types import bucket_rows
@@ -419,7 +422,6 @@ def _batched_pools_host(stack, counts, idx_tgt, radius, k, dtype,
         "pool_xyz": pool_xyz,
         "pool_idx": pool_idx,
         "width_lut": jnp.stack([r.width_lut for r in rows]),
-        "union_lut": jnp.stack([r.union_lut for r in rows]),
         "lut_d": jnp.stack([r.lut_d for r in rows]),
         "origin_d": jnp.stack([r.origin_d for r in rows]),
         "dims_d": jnp.stack([r.dims_d for r in rows]),
@@ -430,8 +432,7 @@ def _batched_pools_host(stack, counts, idx_tgt, radius, k, dtype,
             for c in range(n_classes)
         ),
         "budget_rows": budget_rows,
-        "small_unions": _fp._small_unions(all_unions[all_unions > smw], k),
-        "select_max_w": smw,
+        "select_max_w": first.select_max_w,
     }
 
 
@@ -455,8 +456,9 @@ def run_odometry_batched(
       scans: list of (n_i, 3) numpy arrays.
       mesh: when given, the pair axis is sharded over its "points" axis
         (pairs padded up to a multiple of the axis size with dummy entries).
-      search_impl: "auto" (POOLED Pallas engine on TPU when every pair
-        supports it, grid otherwise) | "pool" | "grid" | "brute". Pooled
+      search_impl: "auto" (the backend's engine for the platform: the
+        POOLED engine when every pair supports it, else grid)
+        | "pool" | "grid" | "brute". Pooled
         pairs whose runtime budget flag fires are automatically redone on
         the batched grid engine and spliced back.
       cost_drop_thresh / n_cost_drop_it: per-pair convergence rule
@@ -503,11 +505,12 @@ def run_odometry_batched(
     mk_targets = lambda: jnp.asarray(stack[idx_tgt], dtype)
     mk_tv = lambda: jnp.asarray(row[None, :] < counts[idx_tgt, None])
 
-    on_tpu = jax.default_backend() == "tpu"
     pools = None
-    if search_impl == "pool" or (search_impl == "auto" and on_tpu):
+    if search_impl == "pool" or (
+        search_impl == "auto" and _auto_pool(stack[0], int(counts[0]), radius)
+    ):
         pools = _batched_pools_host(
-            stack, counts, idx_tgt, radius, k, dtype, idx_src=idx_src
+            stack, counts, idx_tgt, radius, dtype, idx_src=idx_src
         )
         if pools is None and search_impl == "pool":
             raise ValueError(
@@ -524,7 +527,7 @@ def run_odometry_batched(
         budgets = pools["class_budgets"][:-1] + (budget // GROUP,)
         arrays = (
             sources, sv, pools["pool_xyz"], pools["pool_idx"],
-            pools["width_lut"], pools["union_lut"], pools["lut_d"],
+            pools["width_lut"], pools["lut_d"],
             pools["origin_d"], pools["dims_d"],
         )
         if mesh is not None:
@@ -534,8 +537,7 @@ def run_odometry_batched(
             k=k, radius=radius, lm_config=lm_config, n_outer=n_outer,
             class_widths=pools["class_widths"],
             class_ends=pools["class_ends"], class_budgets=budgets,
-            budget_rows=budget, interpret=not on_tpu,
-            dyn_rounds=pools["small_unions"],
+            budget_rows=budget,
             select_max_w=pools["select_max_w"],
             cost_drop_thresh=cost_drop_thresh,
             n_cost_drop_it=n_cost_drop_it,

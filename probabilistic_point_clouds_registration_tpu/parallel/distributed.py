@@ -14,9 +14,8 @@ One SPMD program per outer iteration over a 2D ("points", "targets") mesh:
     replicated, so every device leaves the ``lax.while_loop`` in lockstep.
 
 Either axis may have size 1 — a 1D points mesh is plain DP with a replicated
-target; a 1D targets mesh is pure search-TP. Collectives ride ICI within a
-slice; across hosts the same program runs under ``jax.distributed`` with the
-mesh spanning DCN.
+target; a 1D targets mesh is pure search-TP. Across hosts the same program
+runs under ``jax.distributed`` with the mesh spanning them.
 """
 from __future__ import annotations
 

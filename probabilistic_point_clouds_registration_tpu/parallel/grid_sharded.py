@@ -64,7 +64,7 @@ def build_sharded_grid_host(
 
     Returns None under the same conditions as ops.grid.build_grid_host, or
     when the dense LUT would not fit (the sharded engine requires the LUT:
-    searchsorted is not a TPU-viable fallback on the hot path).
+    searchsorted is too slow a fallback on the hot path).
     """
     target = np.asarray(target, dtype=np.float64)
     n = num_valid if num_valid is not None else target.shape[0]
@@ -125,8 +125,8 @@ def merge_topk_tree(local_d, local_i, local_p=None, *, k: int,
     """Butterfly top-k combine over ``axis_name``: O(k log T) payload.
 
     The all-gather merge ships every shard's (N, k) candidates to every
-    device — payload grows LINEARLY in shard count (measured 4.9 -> 39.3 MB
-    per iteration at 1 -> 8 shards, benchmarks/SCALING_r03.json) and every
+    device — payload grows LINEARLY in shard count (4.9 -> 39.3 MB per
+    iteration at 1 -> 8 shards on the 35k pair) and every
     device then re-reduces the full (N, T*k) matrix. This recursive-halving
     butterfly exchanges (N, k) lists with the rank XOR 2^s partner at each
     of log2(T) stages and k-merges locally, so the per-device payload is

@@ -2,16 +2,18 @@
 
 The reference's only parallelism is Ceres's OpenMP thread pool
 (reference: src/prob_point_cloud_registration.cc:98, CMakeLists.txt:9-14).
-The TPU-native design replaces threads with SPMD over a ``jax.sharding.Mesh``:
+This design replaces threads with SPMD over a ``jax.sharding.Mesh``:
 
   * axis ``"points"`` — source points (and their K candidate neighbors)
     sharded across devices; the 7x7 Gauss-Newton normal equations and scalar
-    costs are reduced with ``psum`` over ICI (data-parallel axis).
+    costs are reduced with ``psum`` across devices (data-parallel axis).
   * axis ``"targets"`` — target-cloud tiles sharded across devices for the
     neighbor search; per-source top-k results from each tile are merged with
     an all-gather + re-top-k (tensor-parallel axis).
 
-Either axis can be used alone (1D mesh) or combined (2D mesh).
+Either axis can be used alone (1D mesh) or combined (2D mesh). The mesh
+shape follows the algorithm alone: the cards of one host reach each other
+all to all, so no device order is better than another.
 """
 from __future__ import annotations
 

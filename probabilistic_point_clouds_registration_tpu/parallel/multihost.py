@@ -1,9 +1,9 @@
-"""Multi-host execution helpers (DCN-spanning meshes).
+"""Multi-host execution helpers (meshes that span hosts).
 
 The reference is strictly single-process (SURVEY.md §2 checklist). For
-pod-scale runs the same SPMD programs in this package span hosts: initialize
-the JAX distributed runtime, build a global mesh whose "points" axis crosses
-hosts (normal-equation psums ride ICI within a slice and DCN across), and
+multi-host runs the same SPMD programs in this package span hosts:
+initialize the JAX distributed runtime, build a global mesh whose "points"
+axis crosses hosts (normal-equation psums cross the host network), and
 assemble host-local results globally.
 
 All functions degrade gracefully in single-process mode so library code can
@@ -11,8 +11,8 @@ call them unconditionally. The multi-PROCESS path is exercised for real in
 tests/test_multihost.py: two OS processes with 4 virtual CPU devices each
 initialize the distributed runtime, span one global mesh, and reproduce the
 single-process sharded registration step bit-for-bit (cross-process psum +
-all-gather, Gloo-backed host trajectory gather). On a pod the same wiring
-spans physical hosts over DCN.
+all-gather, Gloo-backed host trajectory gather). On several machines the
+same wiring spans physical hosts.
 """
 from __future__ import annotations
 
@@ -34,7 +34,8 @@ def initialize_multihost(
     launcher; no-op (returns False) in single-process runs.
 
     Arguments default to the standard env vars (JAX_COORDINATOR_ADDRESS,
-    JAX_NUM_PROCESSES, JAX_PROCESS_ID) / TPU metadata autodetection.
+    JAX_NUM_PROCESSES, JAX_PROCESS_ID). Nothing is autodetected: without an
+    address or a process count this is a single-process run.
 
     Must run before anything initializes the XLA backend — in particular,
     do NOT probe ``jax.process_count()``/``jax.devices()`` first (that
@@ -52,7 +53,7 @@ def initialize_multihost(
     nproc = num_processes or os.environ.get("JAX_NUM_PROCESSES")
     if process_id is None and "JAX_PROCESS_ID" in os.environ:
         process_id = int(os.environ["JAX_PROCESS_ID"])
-    if addr is None and nproc is None and "TPU_WORKER_HOSTNAMES" not in os.environ:
+    if addr is None and nproc is None:
         return False
     jax.distributed.initialize(
         coordinator_address=addr,

@@ -41,6 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
+from ..core import backend
 from ..core.se3 import quat_rotate_points
 from ..core.types import round_up
 from ..models.em_lm import LMConfig, LMResult, em_lm_solve
@@ -74,8 +75,7 @@ class ShardedPoolPlan(NamedTuple):
     budget_rows: int  # max over shards (floored by the step's source count)
     cell_size: float
     n_shards: int
-    small_unions: bool
-    select_max_w: int | None
+    select_max_w: int
     # True when budget_rows already covers the measured per-(slice, shard)
     # grouping demand of the real source — the step then drops its blunt
     # provably-sufficient 8x source-rows floor (docs/PERF.md round-4).
@@ -88,8 +88,6 @@ def choose_pool_shard_layout(
     occupied_cells: int,
     n_devices: int,
     tp: int,
-    *,
-    select_max_w: int | None = None,
 ) -> dict:
     """Occupancy-aware shard-axis decision for the pooled engine.
 
@@ -103,15 +101,15 @@ def choose_pool_shard_layout(
     axis) divides sources S ways at UNCHANGED window widths — occupancy-
     neutral, no top-k merge traffic at all.
 
-    This chooser estimates per-device select-kernel lane work both ways
-    from three cheap host statistics (no dilation, no plan build):
+    This chooser estimates per-device select lane work both ways from
+    three cheap host statistics (no dilation, no plan build):
 
       U  = occupied grid cells ~= candidate windows
       w  = 27 * n_tgt / U      mean window union lanes (27-cell stencil
-                               at mean cell occupancy), clamped to the
-                               backend width floor AFTER the tp split —
-                               on TPU (floor 128) a union already under
-                               128 lanes gains NOTHING from sharding
+                               at mean cell occupancy), rounded up to a
+                               pow2 pool class and clamped to the
+                               narrowest class (fused_pool.MIN_CLASS_LANES)
+                               AFTER the tp split
       rows(m) = 8 * min(U, m) * ceil(max(m/U, 1) / 8)
                                live windows x 8-row groups for m sources
 
@@ -124,8 +122,7 @@ def choose_pool_shard_layout(
     occupancy threshold the round-3 analysis called for, docs/PERF.md
     "realistic multi-chip efficiency bound is set by occupancy").
     """
-    smw = _fp._select_max_w() if select_max_w is None else select_max_w
-    floor = 128 if smw == 0 else 8
+    floor = _fp.MIN_CLASS_LANES
     u = max(int(occupied_cells), 1)
     w_bar = 27.0 * n_tgt / u
 
@@ -155,7 +152,6 @@ def build_sharded_pool_host(
     n_shards: int,
     *,
     num_valid: int | None = None,
-    k: int = 20,
     source_slices: list | None = None,
 ) -> ShardedPoolPlan | None:
     """Deal target rows round-robin into ``n_shards`` pooled prepacks.
@@ -211,8 +207,7 @@ def build_sharded_pool_host(
 
     seed_keys = (
         "packed", "cell_start", "cell_count", "base_e", "d_cells_e",
-        "off_e", "d_cells", "row_vals", "qmeta_vals", "width_lut",
-        "union_lut",
+        "off_e", "d_cells", "row_vals",
     )
     seeds = {
         key: np.stack([p[key] for p in plans2]) for key in seed_keys
@@ -228,13 +223,12 @@ def build_sharded_pool_host(
         plans2[0]["prod_d_pad"],
         plans2[0]["prod_e_pad"],
         "float32",
-        plans2[0]["bands"],  # force-mode: one F=1 band per class (shared)
+        plans2[0]["assemble"],  # force-mode: the class widths (shared)
     )
     budgets = tuple(
         int(max(p["budgets"][c] for p in plans2))
         for c in range(len(ladder))
     )
-    smw = _fp._select_max_w()
     budget_rows = max(int(p["budget_rows"]) for p in plans2)
     demand_sized = False
     if source_slices:
@@ -243,7 +237,7 @@ def build_sharded_pool_host(
         demand = 0
         cum_max = [0] * len(ladder)
         for p2 in plans2:
-            ends_p = tuple(p2["row_ends"])
+            ends_p = tuple(p2["ends"])
             for sl in source_slices:
                 d, cu = _fp.estimate_pool_demand_rows(
                     p2, sl, class_row_ends=ends_p
@@ -261,20 +255,16 @@ def build_sharded_pool_host(
         # clamps still apply on top.
         budgets = _fp.demand_class_budgets(cum_max, budgets[-1])
         demand_sized = True
-    # dyn-rounds hint from the union of all shards' kernel-class unions
-    # (same filter the single-device prepack applies).
-    all_unions = np.concatenate([p["dil"]["union"] for p in plans2])
     return ShardedPoolPlan(
         seeds=seeds,
         plan_key=plan_key,
         class_widths=tuple(ladder),
-        class_ends=tuple(int(e) for e in plans2[0]["row_ends"]),
+        class_ends=tuple(int(e) for e in plans2[0]["ends"]),
         class_budgets=budgets,
         budget_rows=budget_rows,
         cell_size=float(cell_size),
         n_shards=n_shards,
-        small_unions=_fp._small_unions(all_unions[all_unions > smw], k),
-        select_max_w=smw,
+        select_max_w=backend.SELECT_MAX_W,
         demand_sized=demand_sized,
     )
 
@@ -307,11 +297,8 @@ def estimate_sharded_demand_rows(
             },
             "cell_size": sp.cell_size,
             "prod_d_pad": prod_d_pad,
-            # Padded tails carry sentinel cell ids (prod_d_pad) and -1
-            # qmeta — the replay's LUT scatter drops them exactly like the
-            # device build does.
             "d_cells": sp.seeds["d_cells"][s],
-            "qmeta_vals": sp.seeds["qmeta_vals"][s],
+            "row_vals": sp.seeds["row_vals"][s],
         }
         for src in sources:
             if with_classes:
@@ -333,8 +320,7 @@ class ShardedPools(NamedTuple):
 
     pool_xyz: tuple  # per class: (T, R_c + 1, 3, W_c)
     pool_idx: tuple  # per class: (T, R_c + 1, W_c)
-    width_lut: jnp.ndarray  # (T, R_pad + 1) per-pool-row kernel widths
-    union_lut: jnp.ndarray  # (T, R_pad + 1)
+    width_lut: jnp.ndarray  # (T, R_pad + 1) per-row select widths
     lut_d: jnp.ndarray  # (T, prod_d_pad) packed grouping keys
     origin_d: jnp.ndarray  # (T, 3)
     dims_d: jnp.ndarray  # (T, 3)
@@ -342,7 +328,6 @@ class ShardedPools(NamedTuple):
 
 def build_sharded_pools_device(
     mesh: jax.sharding.Mesh, sp: ShardedPoolPlan, dtype=jnp.float32,
-    _replicate_build: bool = False,
 ) -> ShardedPools:
     """Run the pool packing ON each target shard's devices (shard_map over
     ``_build_pools`` — the same one-program device build as the single-chip
@@ -353,21 +338,19 @@ def build_sharded_pools_device(
     (zeros elsewhere — exact). Every (points, targets) device still HOLDS a
     copy — the search consumes the pool on every device row, so the HBM
     footprint is inherent — but the packing FLOPs no longer multiply by dp
-    (round-4 weak #4: 2x redundant ~0.6 s device builds at KITTI scale on a
-    2x4 mesh; the broadcast moves pool bytes over ICI instead, ~ms at
-    45 GB/s/link).
+    (a 2x4 mesh would otherwise build every pool twice; the broadcast
+    moves pool bytes between devices instead).
     """
     P = jax.sharding.PartitionSpec
     t_spec = jax.sharding.NamedSharding(mesh, P(TARGETS_AXIS))
-    # Only the true build seeds cross the link: width/union luts, the
-    # grouping keys, and the search-grid cell ids are DERIVED on device
-    # inside _build_pools (the host copies stay in sp.seeds for the demand
-    # replay); origin_d is search-only and uploads once below.
+    # Only the true build seeds are uploaded: the search-grid cell ids are
+    # DERIVED on device inside _build_pools (the host copy stays in
+    # sp.seeds for the demand replay); origin_d is search-only and uploads
+    # once below.
     dev = {
         key: jax.device_put(np.asarray(v), t_spec)
         for key, v in sp.seeds.items()
-        if key
-        not in ("width_lut", "union_lut", "qmeta_vals", "d_cells", "origin_d")
+        if key not in ("d_cells", "origin_d")
     }
     plan_key = sp.plan_key[:4] + (np.dtype(dtype).name,) + sp.plan_key[5:]
     dp = mesh.shape[POINTS_AXIS]
@@ -400,10 +383,8 @@ def build_sharded_pools_device(
              row_vals, dims_d):
         args = (packed, cell_start, cell_count, base_e, d_cells_e, off_e,
                 row_vals, dims_d)
-        # _replicate_build: the pre-round-5 every-device build, kept for
-        # the A/B measurement (benchmarks/probe_pool_build.py).
-        if dp == 1 or _replicate_build:
-            pool_xyz, pool_idx, lut_d, width_lut, union_lut = build(*args)
+        if dp == 1:
+            pool_xyz, pool_idx, lut_d, width_lut = build(*args)
         else:
             # Both branches must agree on vma types: empty classes' pool
             # arrays are pure constants (unvarying) in the build branch
@@ -433,7 +414,7 @@ def build_sharded_pools_device(
                 args,
             )
             # Broadcast along "points": exactly one row contributed.
-            pool_xyz, pool_idx, lut_d, width_lut, union_lut = jax.tree.map(
+            pool_xyz, pool_idx, lut_d, width_lut = jax.tree.map(
                 lambda x: lax.psum(x, POINTS_AXIS), built
             )
         add = lambda a: a[None]
@@ -442,7 +423,6 @@ def build_sharded_pools_device(
             tuple(add(x) for x in pool_idx),
             add(lut_d),
             add(width_lut),
-            add(union_lut),
         )
 
     nc = len(sp.class_widths)
@@ -456,16 +436,14 @@ def build_sharded_pools_device(
                 (P(TARGETS_AXIS),) * nc,
                 P(TARGETS_AXIS),
                 P(TARGETS_AXIS),
-                P(TARGETS_AXIS),
             ),
         )
     )(*(dev[key] for key in _BUILD_KEYS))
-    pool_xyz, pool_idx, lut_d, width_lut, union_lut = built
+    pool_xyz, pool_idx, lut_d, width_lut = built
     return ShardedPools(
         pool_xyz=pool_xyz,
         pool_idx=pool_idx,
         width_lut=width_lut,
-        union_lut=union_lut,
         lut_d=lut_d,
         origin_d=jax.device_put(sp.seeds["origin_d"].astype(dtype), t_spec),
         dims_d=dev["dims_d"],
@@ -486,7 +464,6 @@ def make_sharded_pool_registration_step(
     radius: float,
     lm_config: LMConfig,
     source_rows_per_shard: int,
-    interpret: bool = False,
     debug_replication: bool = False,
 ):
     """Jitted full outer iteration with the POOLED engine over a 2D mesh.
@@ -538,7 +515,7 @@ def make_sharded_pool_registration_step(
         for b in sp.class_budgets[:-1]
     ) + (ng,)
 
-    def body(fs, sv, pool_xyz, pool_idx, width_lut, union_lut, lut_d,
+    def body(fs, sv, pool_xyz, pool_idx, width_lut, lut_d,
              origin_d, dims_d, q_cum, t_cum, q0, t0):
         sq = lambda a: a.reshape(a.shape[1:])
         moved = quat_rotate_points(q_cum, fs) + t_cum
@@ -548,7 +525,6 @@ def make_sharded_pool_registration_step(
             tuple(sq(x) for x in pool_xyz),
             tuple(sq(x) for x in pool_idx),
             sq(width_lut),
-            sq(union_lut),
             sq(lut_d),
             sq(origin_d),
             sq(dims_d),
@@ -558,9 +534,7 @@ def make_sharded_pool_registration_step(
             class_ends=sp.class_ends,
             class_budgets=budgets,
             budget_rows=budget,
-            interpret=interpret,
             return_points=True,
-            dyn_rounds=sp.small_unions,
             select_max_w=sp.select_max_w,
         )
         local_d = jnp.where(corr.mask, corr.sq_dists, jnp.inf)
@@ -589,8 +563,8 @@ def make_sharded_pool_registration_step(
             n_corr = lax.psum(jnp.sum(found.astype(jnp.int32)), POINTS_AXIS)
         if debug_replication:
             # Runtime replication assert (the property check_vma=False
-            # stops asserting statically — pallas_call carries no vma in
-            # interpret mode): the merged distances (non-scatter) / the
+            # stops asserting statically — see the shard_map below): the
+            # merged distances (non-scatter) / the
             # two-axis-psum'd solve outputs (scatter) must be identical
             # across the targets axis; any divergence poisons q with NaN.
             probe = (
@@ -620,7 +594,6 @@ def make_sharded_pool_registration_step(
             (P(TARGETS_AXIS),) * nc,  # pool_xyz per class
             (P(TARGETS_AXIS),) * nc,  # pool_idx per class
             P(TARGETS_AXIS),  # width_lut
-            P(TARGETS_AXIS),  # union_lut
             P(TARGETS_AXIS),  # lut_d
             P(TARGETS_AXIS),  # origin_d
             P(TARGETS_AXIS),  # dims_d
@@ -637,21 +610,14 @@ def make_sharded_pool_registration_step(
             overflow=P(),
         ),
         # Merge outputs are replicated along "targets" (invariant gather)
-        # and psum-reduced along "points". check_vma must stay OFF on the
-        # two POOLED shard_maps (here and the align scan below) because of
-        # the Pallas kernel inside: jax 0.9 *can* type a pallas_call under
-        # check_vma via jax.ShapeDtypeStruct(..., vma=...), but only for
-        # the compiled (Mosaic) lowering — pallas' interpret mode
-        # (hlo_interpreter) evaluates the kernel body under the vma type
-        # system and fails on any op mixing kernel constants with
-        # vma-carrying operands ("Primitive mul requires varying manual
-        # axes to match"). Every CPU test and the driver dryrun runs
-        # interpret mode, so a vma-annotated out_shape would be untestable
-        # here; replication is asserted at RUNTIME instead
-        # (debug_replication above — exercised by the dryrun and
-        # tests/test_distributed_align.py — plus the single-device parity
-        # suites). The jax feature that would remove this site: interpret-
-        # mode pallas_call honoring out_shape vma like Mosaic does.
+        # and psum-reduced along "points". check_vma stays OFF on the two
+        # POOLED shard_maps (here and the align scan below) because of the
+        # Pallas select kernel inside: in interpret mode (the CPU tests)
+        # pallas_call carries no vma types, and the kernel body fails the
+        # checker on any op mixing kernel constants with vma-carrying
+        # operands. Replication is asserted at RUNTIME instead
+        # (debug_replication, exercised by tests/test_distributed_align.py)
+        # plus the single-device parity suites.
         check_vma=False,
     )
     jitted = jax.jit(sharded)
@@ -659,7 +625,7 @@ def make_sharded_pool_registration_step(
     def step(fs, sv, pools: ShardedPools, q_cum, t_cum, q0, t0):
         return jitted(
             fs, sv, pools.pool_xyz, pools.pool_idx, pools.width_lut,
-            pools.union_lut, pools.lut_d, pools.origin_d, pools.dims_d,
+            pools.lut_d, pools.origin_d, pools.dims_d,
             q_cum, t_cum, q0, t0,
         )
 
@@ -678,7 +644,6 @@ def make_sharded_pool_align_scan(
     n_iter: int,
     cost_drop_thresh: float,
     n_cost_drop_it: int,
-    interpret: bool = False,
     budget_boost: int = 0,
     debug_replication: bool = False,
 ):
@@ -740,7 +705,7 @@ def make_sharded_pool_align_scan(
         for b in sp.class_budgets[:-1]
     ) + (ng,)
 
-    def body(fs, sv, pool_xyz, pool_idx, width_lut, union_lut, lut_d,
+    def body(fs, sv, pool_xyz, pool_idx, width_lut, lut_d,
              origin_d, dims_d, q_cum, t_cum, q0, t0, drop0, unuseful0, it0):
         sq = lambda a: a.reshape(a.shape[1:])
 
@@ -752,7 +717,6 @@ def make_sharded_pool_align_scan(
                 tuple(sq(x) for x in pool_xyz),
                 tuple(sq(x) for x in pool_idx),
                 sq(width_lut),
-                sq(union_lut),
                 sq(lut_d),
                 sq(origin_d),
                 sq(dims_d),
@@ -762,9 +726,7 @@ def make_sharded_pool_align_scan(
                 class_ends=sp.class_ends,
                 class_budgets=budgets,
                 budget_rows=budget,
-                interpret=interpret,
                 return_points=True,
-                dyn_rounds=sp.small_unions,
                 select_max_w=sp.select_max_w,
             )
             local_d = jnp.where(corr.mask, corr.sq_dists, jnp.inf)
@@ -837,17 +799,13 @@ def make_sharded_pool_align_scan(
             (P(TARGETS_AXIS),) * nc,
             (P(TARGETS_AXIS),) * nc,
             P(TARGETS_AXIS),  # width_lut
-            P(TARGETS_AXIS),  # union_lut
             P(TARGETS_AXIS),  # lut_d
             P(TARGETS_AXIS),  # origin_d
             P(TARGETS_AXIS),  # dims_d
             P(), P(), P(), P(), P(), P(), P(),
         ),
         out_specs=(P(),) * 10,
-        # Same check_vma story as the step factory above (interpret-mode
-        # pallas cannot carry the out_shape vma the checker needs; see the
-        # full note there). Replication is asserted at runtime instead
-        # (debug_replication + the parity tests).
+        # Same check_vma story as the step factory above.
         check_vma=False,
     )
     jitted = jax.jit(sharded)
@@ -856,7 +814,7 @@ def make_sharded_pool_align_scan(
              unuseful0, it0):
         return jitted(
             fs, sv, pools.pool_xyz, pools.pool_idx, pools.width_lut,
-            pools.union_lut, pools.lut_d, pools.origin_d, pools.dims_d,
+            pools.lut_d, pools.origin_d, pools.dims_d,
             q_cum, t_cum, q0, t0, drop0, unuseful0, it0,
         )
 

@@ -5,8 +5,7 @@ shard its rows over the ``"targets"`` mesh axis: each device streams its tile
 of the target against the (replicated or points-sharded) source, producing a
 local per-source top-k; the global top-k is recovered by an ``all_gather`` of
 the D local candidate sets followed by one (N, D*k) re-top-k. This is the
-tensor-parallel analogue for registration — the collective rides ICI and
-moves only O(N * D * k) floats, never the O(N * M) distance matrix.
+tensor-parallel analogue for registration — the collective moves only O(N * D * k) floats, never the O(N * M) distance matrix.
 
 Replaces the reference's single-threaded FLANN kd-tree radius search
 (reference: src/prob_point_cloud_registration.cc:66-81) at target sizes a

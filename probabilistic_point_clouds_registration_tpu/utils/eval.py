@@ -16,7 +16,7 @@ reference are apples-to-apples:
   the textbook median on both branches. Reproduced as-is (helper
   ``_reference_median``).
 
-NN queries run through the tiled TPU search op; inputs are numpy or jax
+NN queries run through the tiled device search op; inputs are numpy or jax
 arrays of shape (n, 3).
 """
 from __future__ import annotations

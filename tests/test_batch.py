@@ -127,10 +127,8 @@ def test_batched_grid_engine_matches_brute():
 
 
 def test_batched_pool_engine_matches_grid():
-    """The batched POOLED Pallas engine (flagship; pair-harmonized static
-    geometry, vmapped select kernel) must reproduce the batched grid
-    trajectories (round-2 VERDICT item #1: batched odometry on the
-    flagship engine)."""
+    """The batched POOLED engine (pair-harmonized static geometry, vmapped
+    select) must reproduce the batched grid trajectories."""
     scans, gt = _sequence(4)
     cfg = LMConfig(dof=5.0, max_iterations=25)
     kw = dict(k=10, radius=0.5, lm_config=cfg, n_outer=6, pad_multiple=128,

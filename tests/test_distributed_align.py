@@ -166,15 +166,14 @@ def test_debug_replication_check_passes():
     src, tgt = _pair(n=2000, seed=12)
     mesh = make_mesh(2, 2)
     k, radius = 8, 0.5
-    sp = build_sharded_pool_host(tgt, radius, 2, num_valid=tgt.shape[0], k=k)
+    sp = build_sharded_pool_host(tgt, radius, 2, num_valid=tgt.shape[0])
     assert sp is not None
     pools = build_sharded_pools_device(mesh, sp)
     src_p, n_src = pad_cloud(src, 256, pad_value=0.0)
     scan = make_sharded_pool_align_scan(
         mesh, sp, k=k, radius=radius, lm_config=LMConfig(dof=5.0),
         source_rows_per_shard=src_p.shape[0] // 2, chunk=2, n_iter=2,
-        cost_drop_thresh=-1.0, n_cost_drop_it=5, interpret=True,
-        debug_replication=True,
+        cost_drop_thresh=-1.0, n_cost_drop_it=5, debug_replication=True,
     )
     q0 = jnp.asarray([1.0, 0, 0, 0], jnp.float32)
     t0 = jnp.zeros(3, jnp.float32)

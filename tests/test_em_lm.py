@@ -199,7 +199,7 @@ def test_moments_path_matches_direct_normal_equations():
 
 
 def test_moments_path_f32_accuracy_large_coordinates():
-    """The production TPU path runs the moments formulation in f32. Against
+    """The production device path runs the moments formulation in f32. Against
     the f64 direct form as ground truth, the f32 moments H/g/cost and the
     closed-form candidate cost must stay within f32-appropriate bounds in
     the KITTI-like large-coordinate regime (second moments ~1e8)."""
@@ -232,7 +232,7 @@ def test_moments_path_f32_accuracy_large_coordinates():
         q, t, source64, targets64, w, mask
     )
 
-    # f32 moments path (what the TPU executes).
+    # f32 moments path (what the device executes).
     s32 = source64.astype(jnp.float32)
     t32 = targets64.astype(jnp.float32)
     q32, tt32 = q.astype(jnp.float32), t.astype(jnp.float32)

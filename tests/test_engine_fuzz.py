@@ -89,16 +89,14 @@ def test_engines_agree(seed, kind, k, radius):
             grid, jnp.asarray(src_p, jnp.float32), k=k, radius=radius,
             source_valid=sv,
         )
-        pre = build_pool_prepack(gh, tgt_p, k=k)
+        pre = build_pool_prepack(gh, tgt_p)
         if pre is not None:
             budget = round_up(max(pre.budget_rows, 2 * src_p.shape[0]), 128)
             corr, overflow = fused_pool_search(
                 jnp.asarray(src_p, jnp.float32), sv,
-                pre.pool_xyz, pre.pool_idx, pre.width_lut, pre.union_lut,
-                pre.lut_d, pre.origin_d, pre.dims_d, k=k, radius=radius,
+                pre.pool_xyz, pre.pool_idx, pre.width_lut, pre.lut_d, pre.origin_d, pre.dims_d, k=k, radius=radius,
                 class_widths=pre.class_widths, class_ends=pre.class_ends,
                 class_budgets=pre.class_budgets, budget_rows=budget,
-                interpret=True, dyn_rounds=pre.small_unions,
             )
             if int(overflow) == 0:
                 engines["pool"] = corr

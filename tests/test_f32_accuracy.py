@@ -1,5 +1,5 @@
-"""f32-vs-f64 end-to-end accuracy at the TPU operating point (SURVEY.md §7
-hard part (c)): the full pipeline in f32 — the dtype every TPU run uses —
+"""f32-vs-f64 end-to-end accuracy at the device operating point (SURVEY.md
+§7 hard part (c)): the full pipeline in f32 — the dtype every device run uses —
 must reproduce the f64 trajectory at bench scale.
 
 Measured on this fixture (35k points, r=0.075, k=20): mean aligned-point

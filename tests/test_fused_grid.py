@@ -49,9 +49,8 @@ def _run_both(src, tgt, radius, k):
     assert pre is not None
     got, overflow = fused_grid_search(
         jnp.asarray(src_p, jnp.float32), sv,
-        pre.cand_xyz, pre.cand_idx, pre.width_lut, pre.union_lut, pre.lut_d, pre.origin_d,
-        pre.dims_d, k=k, radius=radius, n_lanes=pre.n_lanes, interpret=True,
-    )
+        pre.cand_xyz, pre.cand_idx, pre.width_lut, pre.lut_d, pre.origin_d,
+        pre.dims_d, k=k, radius=radius, )
     return ref, got, int(overflow), n_src
 
 
@@ -107,9 +106,8 @@ def test_fused_overflow_flag_fires_on_scattered_sources():
     sv = valid_mask(src_p.shape[0], n_src)
     got, overflow = fused_grid_search(
         jnp.asarray(src_p, jnp.float32), sv,
-        pre.cand_xyz, pre.cand_idx, pre.width_lut, pre.union_lut, pre.lut_d, pre.origin_d,
-        pre.dims_d, k=4, radius=0.4, n_lanes=pre.n_lanes, interpret=True,
-    )
+        pre.cand_xyz, pre.cand_idx, pre.width_lut, pre.lut_d, pre.origin_d,
+        pre.dims_d, k=4, radius=0.4, )
     assert overflow > 0
     # Non-overflowed sources must still be correct.
     ref = grid_search(grid, jnp.asarray(src_p, jnp.float32), k=4, radius=0.4,
@@ -149,16 +147,16 @@ def test_fused_registration_matches_grid_engine():
 def test_fused_wide_windows_past_4096_lanes():
     """Regression: windows wider than 4096 lanes (dense near-sensor core —
     capacity-driven widths the pool engine declines and routes here) must
-    not lose candidates. A hardcoded segment bound of 4096 in
-    _group_by_window made lanes >= 4096 invisible to the select kernel:
-    wrong neighbors with overflow=0."""
+    not lose candidates. A hardcoded 4096-lane bound on the grouped rows
+    once made lanes >= 4096 invisible to the select kernel: wrong
+    neighbors with overflow=0."""
     rng = np.random.default_rng(3)
     # A 3x3x3 block of hot cells (~200 points each): the center cell's
     # 27-cell union is ~5400 candidates > 4096 lanes (while << M so the
     # grid build doesn't decline for brute force). The TRUE nearest
     # neighbors are planted in the (+1,+1,+1) neighbor — offset 26, the
-    # LAST window segment, lanes ~5200 — so the old hardcoded 4096-lane
-    # segment bound masked exactly them. An anchor point at the origin
+    # LAST neighbor of the window, lanes ~5200 — so the old hardcoded
+    # 4096-lane bound masked exactly them. An anchor point at the origin
     # pins the grid so cell boundaries sit at exact multiples of 0.25.
     cell = 0.25
     ks = [1, 2, 3]

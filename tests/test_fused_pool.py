@@ -62,17 +62,17 @@ def _run_both(src, tgt, radius, k, max_overflow=64):
     assert pre is not None
     # Direct-call budget: 8x the source rows (the provable worst case — one
     # group per source). These fixtures shift the source by over a cell, so
-    # drifted sources scatter away from the segment packing the plan
-    # predicted from aligned occupancy (production callers escalate the
+    # drifted sources scatter away from the grouping the plan predicted
+    # from aligned occupancy (production callers escalate the
     # budget on overflow instead; registration._align_loop).
     budget = round_up(max(pre.budget_rows, 8 * src_p.shape[0]), 128)
     got, overflow, pts = fused_pool_search(
         jnp.asarray(src_p, jnp.float32), sv,
-        pre.pool_xyz, pre.pool_idx, pre.width_lut, pre.union_lut, pre.lut_d, pre.origin_d,
+        pre.pool_xyz, pre.pool_idx, pre.width_lut, pre.lut_d, pre.origin_d,
         pre.dims_d, k=k, radius=radius,
         class_widths=pre.class_widths, class_ends=pre.class_ends,
         class_budgets=pre.class_budgets, budget_rows=budget,
-        interpret=True, return_points=True,
+        return_points=True,
     )
     return ref, got, int(overflow), pts, n_src, tgt_p, pre
 
@@ -135,12 +135,11 @@ def test_pool_budget_overflow_flag():
     sv = valid_mask(src_p.shape[0], n_src)
     got, overflow = fused_pool_search(
         jnp.asarray(src_p, jnp.float32), sv,
-        pre.pool_xyz, pre.pool_idx, pre.width_lut, pre.union_lut, pre.lut_d, pre.origin_d,
+        pre.pool_xyz, pre.pool_idx, pre.width_lut, pre.lut_d, pre.origin_d,
         pre.dims_d, k=5, radius=0.5,
         class_widths=pre.class_widths, class_ends=pre.class_ends,
         class_budgets=pre.class_budgets, budget_rows=256,
-        interpret=True,
-    )
+        )
     assert int(overflow) > 0
 
 
@@ -182,16 +181,17 @@ def test_pool_registration_matches_grid_engine():
 
 
 def test_xla_class_select_matches_kernel():
-    """_xla_class_select must be slot-for-slot identical to _run_select
-    (stable top_k ties toward the lower lane == min-extraction lane order),
-    including distances, indices, and emitted coordinates."""
+    """_xla_class_select must be slot-for-slot identical to the Pallas
+    select kernel (stable top_k ties toward the lower lane == the kernel's
+    (distance, lane) order), including distances, indices, and emitted
+    coordinates."""
     from probabilistic_point_clouds_registration_tpu.ops.fused_grid import (
         BLOCK_GROUPS,
         GROUP,
-        _run_select,
-    )
-    from probabilistic_point_clouds_registration_tpu.ops.fused_pool import (
         _xla_class_select,
+    )
+    from probabilistic_point_clouds_registration_tpu.ops.select_kernel import (
+        kernel_select,
     )
     import jax.numpy as jnp
 
@@ -205,32 +205,24 @@ def test_xla_class_select_matches_kernel():
     win_xyz[:, :, 5] = win_xyz[:, :, 2]
     rows = np.repeat(win_xyz.mean(axis=2)[:, None, :], GROUP, axis=1)
     rows = rows + rng.normal(scale=0.3, size=rows.shape).astype(np.float32)
-    from probabilistic_point_clouds_registration_tpu.ops.fused_grid import (
-        pack_row_meta,
-    )
-
-    meta = float(pack_row_meta(1, 0, 4096))
     rows4 = np.concatenate(
         [
             rows.reshape(b * GROUP, 3),
-            np.full((b * GROUP, 1), meta, np.float32),
+            np.ones((b * GROUP, 1), np.float32),
         ],
         axis=1,
     )
-    rows4[-2:, 3] = float(pack_row_meta(0, 0, 4096))  # invalid sources
+    rows4[-2:, 3] = 0.0  # invalid sources
     radius = 0.9
 
     got = _xla_class_select(
         jnp.asarray(rows4), jnp.asarray(win_xyz), jnp.asarray(win_idx),
         k=k, kp=kp, radius=radius, return_points=True,
     )
-    w_blk = np.full((1,), w, np.int32)
-    u_blk = np.full((1,), w - 3, np.int32)
-    ref = _run_select(
+    ref = kernel_select(
         jnp.asarray(rows4), jnp.asarray(win_xyz), jnp.asarray(win_idx),
-        jnp.asarray(w_blk), jnp.asarray(u_blk),
-        k=k, n_lanes=w, radius=radius, interpret=True, return_points=True,
-        dyn_rounds=True,
+        jnp.arange(b, dtype=jnp.int32), jnp.full((b,), w, jnp.int32),
+        k=k, kp=kp, radius=radius, return_points=True,
     )
     np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(ref[1]))
     m = np.asarray(ref[1]) >= 0
@@ -244,7 +236,7 @@ def test_pool_compile_stability_across_scans():
     """Two different scans of similar geometry must share every static key:
     same plan_key for _build_pools and same (class_widths, ends, budgets,
     budget_rows) for the search — the bucketing that keeps a sequence from
-    recompiling per pair (remote compiles cost seconds each)."""
+    recompiling per pair (each new key is a compile)."""
     from probabilistic_point_clouds_registration_tpu.ops import fused_pool as fp
 
     keys = []

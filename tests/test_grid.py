@@ -129,46 +129,6 @@ def test_pipeline_grid_chunked_matches_brute():
         np.testing.assert_allclose(rg.final_cost, rb.final_cost, rtol=1e-9)
 
 
-def test_grid_pallas_selection_matches_topk():
-    """The Pallas K-pass selection (interpret mode on CPU) must produce the
-    same neighbor sets as the lax.top_k selection path."""
-    from probabilistic_point_clouds_registration_tpu.core.types import (
-        pad_cloud, valid_mask,
-    )
-    import jax.numpy as jnp
-
-    tgt = bunny_like(4000)
-    src = bunny_like(3000, seed=7)
-    src_p, n_src = pad_cloud(src, 64, pad_value=0.0)
-    tgt_p, n_tgt = pad_cloud(tgt, 64, pad_value=0.0)
-    sv = valid_mask(src_p.shape[0], n_src)
-    grid = build_grid(tgt_p, 0.15, num_valid=n_tgt)
-    assert grid is not None
-
-    from probabilistic_point_clouds_registration_tpu.ops.grid import (
-        grid_radius_search,
-    )
-
-    def run(select):
-        return grid_radius_search(
-            jnp.asarray(src_p), grid.bucket_pts, grid.bucket_idx, grid.cell_ids,
-            grid.origin, grid.dims, grid.lut,
-            k=10, radius=0.15, capacity=grid.capacity, source_valid=sv,
-            source_tile=256, select_impl=select,
-        )
-
-    a = run("topk")
-    b = run("pallas_interpret")
-    np.testing.assert_array_equal(np.asarray(a.mask).sum(1), np.asarray(b.mask).sum(1))
-    for ia, da, ib, db, m in zip(
-        np.asarray(a.indices), np.asarray(a.sq_dists),
-        np.asarray(b.indices), np.asarray(b.sq_dists), np.asarray(a.mask),
-    ):
-        nm = m.sum()
-        assert set(ia[:nm]) == set(ib[:nm])
-        np.testing.assert_allclose(np.sort(da[:nm]), np.sort(db[:nm]), atol=1e-9)
-
-
 def test_grid_approx_selection_high_recall():
     """approx_max_k selection: opt-in approximate path must keep >=95% of the
     exact neighbor pairs on a realistic fixture."""

@@ -1,6 +1,6 @@
 """Sharded hash-grid engine parity: 2D-mesh step vs the single-device grid
-engine at bench scale (VERDICT round-1 item: the production engine must be
-the one that scales)."""
+engine at bench scale (the production engine must be the one that
+scales)."""
 import jax
 import jax.numpy as jnp
 import numpy as np

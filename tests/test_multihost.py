@@ -1,6 +1,5 @@
 """REAL multi-process execution of the sharded registration step.
 
-Round-1 VERDICT flagged the multihost wiring as never having executed.
 This test launches two actual OS processes, each with 4 virtual CPU
 devices, initializes jax.distributed (coordinator on localhost), builds
 the global ("points", "targets") mesh spanning both processes, runs one
@@ -202,8 +201,7 @@ print("RESULT " + json.dumps({
 
 
 def test_two_process_pose_graph_matches_single_process(tmp_path):
-    """Edge-sharded pose-graph solve across two real processes (the round-1
-    VERDICT noted the pose-graph sharding had never run across >= 2 hosts)."""
+    """Edge-sharded pose-graph solve across two real processes."""
     worker = tmp_path / "pg_worker.py"
     worker.write_text(_PG_WORKER)
     root = Path(__file__).resolve().parent

@@ -101,7 +101,7 @@ def test_voxel_native_matches_python(seed, n, leaf):
     # Pure-Python oracle (force the fallback path).
     import os
 
-    os.environ["PCR_TPU_DISABLE_NATIVE"] = "1"
+    os.environ["PCR_DISABLE_NATIVE"] = "1"
     try:
         # Re-derive with the numpy branch by calling the internals directly.
         ijk = np.floor(pts / leaf).astype(np.int64)
@@ -113,7 +113,7 @@ def test_voxel_native_matches_python(seed, n, leaf):
         np.add.at(sums, inverse, pts)
         want = sums / counts[:, None]
     finally:
-        del os.environ["PCR_TPU_DISABLE_NATIVE"]
+        del os.environ["PCR_DISABLE_NATIVE"]
 
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-12)

@@ -1,7 +1,7 @@
 """Multi-device sharding tests on the virtual 8-CPU mesh.
 
 The reference has no distributed execution (SURVEY.md §2 checklist); these
-tests validate the TPU-native parallel axes the rebuild adds: points-sharded
+tests validate the device-parallel axes the rebuild adds: points-sharded
 normal-equation psum, target-sharded search with all-gather top-k merge, and
 the combined 2D-mesh registration step. Each asserts parity against the
 single-device pipeline, the multi-device analogue of the reference's

@@ -5,7 +5,7 @@ that is NOT the target plus a shift) land sources in dilated shell cells
 the proxy scores zero, undercounting padded rows ~1.5x at KITTI-like
 density. estimate_pool_demand_rows must replay the device grouping's
 arithmetic exactly so the ctor can size the first compiled program to the
-real pair and never burn a discarded chunk + second remote compile on the
+real pair and never burn a discarded chunk + second compile on the
 overflow ladder.
 """
 import jax
@@ -21,6 +21,7 @@ from probabilistic_point_clouds_registration_tpu.ops import fused_pool as fp
 from probabilistic_point_clouds_registration_tpu.ops.fused_grid import (
     BLOCK_GROUPS,
     GROUP,
+    _group_by_window,
 )
 from probabilistic_point_clouds_registration_tpu.ops.grid import (
     build_grid_host,
@@ -44,7 +45,7 @@ def _plan_and_pool(tgt, radius, k=8):
     assert grid is not None
     plan = fp.plan_pool_host(grid, tg)
     assert plan is not None
-    pool = fp.build_pool_prepack(grid, tg, plan=plan, k=k)
+    pool = fp.build_pool_prepack(grid, tg, plan=plan)
     assert pool is not None
     return tg, plan, pool
 
@@ -53,7 +54,7 @@ def _real_rows_used(pool, src, radius, s_pad):
     fs, n_src = pad_cloud(src, 256, pad_value=0.0)
     valid = jnp.asarray(np.arange(fs.shape[0]) < n_src)
     n_rows = pool.width_lut.shape[0] - 1
-    padded, step_rows, order, dst, overflow = fp._group_by_row(
+    padded, step_rows, order, dst, overflow = _group_by_window(
         jnp.asarray(fs, jnp.float32), valid, pool.lut_d, pool.origin_d,
         pool.dims_d, n_rows, radius, s_pad,
     )
@@ -151,7 +152,7 @@ def test_demand_per_class_groups_match_device_grouping():
     n_rows = pool.width_lut.shape[0] - 1
     s_pad = round_up(max(total, 2 * BLOCK_GROUPS * GROUP),
                      2 * BLOCK_GROUPS * GROUP)
-    padded, step_rows, order, dst, overflow = fp._group_by_row(
+    padded, step_rows, order, dst, overflow = _group_by_window(
         jnp.asarray(fs, jnp.float32), valid, pool.lut_d, pool.origin_d,
         pool.dims_d, n_rows, radius, s_pad,
     )

@@ -1,6 +1,6 @@
 """Sharded POOLED engine parity: the 2D-mesh step must reproduce the
-single-device pooled Pallas engine (VERDICT round-2 item #1: multi-device
-execution must run the flagship engine, not the previous generation).
+single-device pooled engine (multi-device execution runs the same engine
+as one device).
 
 Both sides run the SAME search semantics (radius-capped KNN, ascending
 (distance, slot) order) so the solves must agree to f32 collective-order
@@ -66,7 +66,7 @@ def _single_device_pool(src_p, sv, tgt_p, n_tgt, k, radius):
     """Reference: the single-device pooled engine (interpret kernel)."""
     gh = build_grid_host(tgt_p, radius, num_valid=n_tgt)
     assert gh is not None
-    pre = fp.build_pool_prepack(gh, tgt_p, k=k)
+    pre = fp.build_pool_prepack(gh, tgt_p)
     assert pre is not None, "fixture must fit the pooled engine"
     corr, overflow, pts = fp.fused_pool_search(
         jnp.asarray(src_p, jnp.float32),
@@ -74,7 +74,6 @@ def _single_device_pool(src_p, sv, tgt_p, n_tgt, k, radius):
         pre.pool_xyz,
         pre.pool_idx,
         pre.width_lut,
-        pre.union_lut,
         pre.lut_d,
         pre.origin_d,
         pre.dims_d,
@@ -84,9 +83,7 @@ def _single_device_pool(src_p, sv, tgt_p, n_tgt, k, radius):
         class_ends=pre.class_ends,
         class_budgets=pre.class_budgets,
         budget_rows=pre.budget_rows,
-        interpret=True,
         return_points=True,
-        dyn_rounds=pre.small_unions,
         select_max_w=pre.select_max_w,
     )
     assert int(overflow) == 0
@@ -95,7 +92,7 @@ def _single_device_pool(src_p, sv, tgt_p, n_tgt, k, radius):
 
 def _run_sharded(src_p, sv, tgt_p, n_tgt, k, radius, cfg, dp, tp):
     mesh = make_mesh(n_points_shards=dp, n_target_shards=tp)
-    sp = build_sharded_pool_host(tgt_p, radius, tp, num_valid=n_tgt, k=k)
+    sp = build_sharded_pool_host(tgt_p, radius, tp, num_valid=n_tgt)
     assert sp is not None, "fixture must fit the sharded pooled engine"
     pools = build_sharded_pools_device(mesh, sp)
     step = make_sharded_pool_registration_step(
@@ -105,8 +102,7 @@ def _run_sharded(src_p, sv, tgt_p, n_tgt, k, radius, cfg, dp, tp):
         radius=radius,
         lm_config=cfg,
         source_rows_per_shard=src_p.shape[0] // dp,
-        interpret=True,
-    )
+        )
     q0 = jnp.asarray([1.0, 0, 0, 0], jnp.float32)
     t0 = jnp.zeros(3, jnp.float32)
     out = step(
@@ -210,7 +206,7 @@ def test_sharded_pool_sets_match_exactly():
     )
 
     mesh = make_mesh(n_points_shards=1, n_target_shards=4)
-    sp = build_sharded_pool_host(tgt_p, radius, 4, num_valid=n_tgt, k=k)
+    sp = build_sharded_pool_host(tgt_p, radius, 4, num_valid=n_tgt)
     assert sp is not None
     pools = build_sharded_pools_device(mesh, sp)
 
@@ -229,18 +225,17 @@ def test_sharded_pool_sets_match_exactly():
         for b in sp.class_budgets[:-1]
     ) + (budget // GROUP,)
 
-    def body(fs, sv_, pool_xyz, pool_idx, width_lut, union_lut, lut_d,
-             origin_d, dims_d):
+    def body(fs, sv_, pool_xyz, pool_idx, width_lut, lut_d, origin_d,
+             dims_d):
         sq = lambda a: a.reshape(a.shape[1:])
         corr, overflow, _ = fp.fused_pool_search(
             fs, sv_,
             tuple(sq(x) for x in pool_xyz), tuple(sq(x) for x in pool_idx),
-            sq(width_lut), sq(union_lut), sq(lut_d), sq(origin_d),
+            sq(width_lut), sq(lut_d), sq(origin_d),
             sq(dims_d),
             k=k, radius=radius, class_widths=sp.class_widths,
             class_ends=sp.class_ends, class_budgets=budgets,
-            budget_rows=budget, interpret=True, return_points=True,
-            dyn_rounds=sp.small_unions, select_max_w=sp.select_max_w,
+            budget_rows=budget, return_points=True, select_max_w=sp.select_max_w,
         )
         all_d = lax.all_gather(
             jnp.where(corr.mask, corr.sq_dists, jnp.inf), TARGETS_AXIS
@@ -256,7 +251,7 @@ def test_sharded_pool_sets_match_exactly():
             in_specs=(
                 P(), P(), (P(TARGETS_AXIS),) * nc, (P(TARGETS_AXIS),) * nc,
                 P(TARGETS_AXIS), P(TARGETS_AXIS), P(TARGETS_AXIS),
-                P(TARGETS_AXIS), P(TARGETS_AXIS),
+                P(TARGETS_AXIS),
             ),
             out_specs=(P(), P(), P()),
             check_vma=False,
@@ -264,7 +259,7 @@ def test_sharded_pool_sets_match_exactly():
     )
     got_i, got_f, overflow = run(
         jnp.asarray(src_p, jnp.float32), jnp.asarray(sv), pools.pool_xyz,
-        pools.pool_idx, pools.width_lut, pools.union_lut, pools.lut_d,
+        pools.pool_idx, pools.width_lut, pools.lut_d,
         pools.origin_d, pools.dims_d,
     )
     assert int(jnp.sum(overflow)) == 0
@@ -304,15 +299,13 @@ def test_forced_plan_matches_self_plan_results():
     assert list(plan_f["widths"]) == list(force["widths"])
 
     def search(p):
-        pre = fp.build_pool_prepack(gh, tgt_p, plan=p, k=k)
+        pre = fp.build_pool_prepack(gh, tgt_p, plan=p)
         corr, overflow = fp.fused_pool_search(
             jnp.asarray(src_p, jnp.float32), jnp.asarray(sv),
-            pre.pool_xyz, pre.pool_idx, pre.width_lut, pre.union_lut,
-            pre.lut_d, pre.origin_d, pre.dims_d,
+            pre.pool_xyz, pre.pool_idx, pre.width_lut, pre.lut_d, pre.origin_d, pre.dims_d,
             k=k, radius=radius, class_widths=pre.class_widths,
             class_ends=pre.class_ends, class_budgets=pre.class_budgets,
-            budget_rows=pre.budget_rows, interpret=True,
-            dyn_rounds=pre.small_unions, select_max_w=pre.select_max_w,
+            budget_rows=pre.budget_rows, select_max_w=pre.select_max_w,
         )
         assert int(overflow) == 0
         return corr
@@ -347,7 +340,7 @@ def test_demand_sized_sharded_budget_shrinks_and_stays_correct():
 
     mesh = make_mesh(n_points_shards=dp, n_target_shards=tp)
     sp = build_sharded_pool_host(
-        tgt_p, radius, tp, num_valid=n_tgt, k=k, source_slices=slices
+        tgt_p, radius, tp, num_valid=n_tgt, source_slices=slices
     )
     assert sp is not None and sp.demand_sized
     from probabilistic_point_clouds_registration_tpu.core.types import round_up
@@ -364,8 +357,7 @@ def test_demand_sized_sharded_budget_shrinks_and_stays_correct():
     pools = build_sharded_pools_device(mesh, sp)
     step = make_sharded_pool_registration_step(
         mesh, sp, k=k, radius=radius, lm_config=cfg,
-        source_rows_per_shard=rps, interpret=True,
-    )
+        source_rows_per_shard=rps, )
     q0 = jnp.asarray([1.0, 0, 0, 0], jnp.float32)
     t0 = jnp.zeros(3, jnp.float32)
     out = step(

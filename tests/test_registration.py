@@ -200,8 +200,8 @@ def test_chunked_convergence_matches_single_step():
 
 def test_trace_inner_on_chunked_path(capsys):
     """trace_inner must stream per-LM rows from the CHUNKED scan path too —
-    diagnostics no longer force the slow single-step engine (round-2
-    VERDICT item #7; reference analogue cc:108)."""
+    diagnostics no longer force the slow single-step engine (reference
+    analogue cc:108)."""
     import re
 
     rng = np.random.default_rng(3)
@@ -224,8 +224,8 @@ def test_trace_inner_on_chunked_path(capsys):
 
 
 def test_trace_inner_on_pooled_engine(capsys):
-    """trace_inner composes with the pooled Pallas engine (interpret on
-    CPU): per-LM rows stream out of the scan without disabling the
+    """trace_inner composes with the pooled engine (its select kernel in
+    interpret mode on the CPU): per-LM rows stream out of the scan without disabling the
     engine."""
     import re
 
@@ -258,8 +258,7 @@ def test_pooled_budget_overflow_falls_back_to_grid_mid_pair(thresh, n_drop):
     """End-to-end coverage of the mid-pair engine fallback: when the pooled
     engine's runtime budget flag fires inside align(), the chunk is
     discarded and the pair redone on the XLA grid engine — the records and
-    trajectory must be IDENTICAL to a forced-grid run (round-2 VERDICT
-    weakness #4). The stall-rule variant guards the fallback's stall-counter
+    trajectory must be IDENTICAL to a forced-grid run. The stall-rule variant guards the fallback's stall-counter
     restore: the loop-top has_converged() mutates the counter for an
     iteration the discarded chunk never produced, and without the restore
     the fallback pair terminates one iteration early."""

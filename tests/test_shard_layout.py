@@ -2,11 +2,10 @@
 
 Target-sharding thins per-window source occupancy toward 1 and pads every
 live window to a full 8-row group (the 8x budget of
-parallel/pool_sharded.py), while on TPU the select kernel's width classes
-floor at 128 lanes — once per-shard unions drop under the floor, splitting
-targets buys nothing. The chooser must therefore send sparse scans to
-points-only sharding and dense scans to targets sharding, and
-DistributedRegistration must produce identical results either way.
+parallel/pool_sharded.py), while it shrinks window widths tp-fold. With
+pow2 width classes down to 8 lanes the two effects cancel on sparse scans
+(a tie, which keeps "targets"), and on dense scans the width shrink wins.
+DistributedRegistration must produce identical results either layout.
 """
 import numpy as np
 import pytest
@@ -24,23 +23,30 @@ from probabilistic_point_clouds_registration_tpu.parallel import (
 )
 
 
-def test_chooser_sparse_scan_prefers_points():
-    # Unions already under the TPU 128-lane floor and occupancy ~1: the
-    # width shrink is free but the 8-row padding is not — points wins.
+def test_chooser_sparse_scan_ties_to_targets():
+    # Occupancy ~1: target-sharding multiplies padded rows by at most tp
+    # and divides pow2 window widths by tp, so it never loses; at equal
+    # work the tie keeps "targets".
     out = choose_pool_shard_layout(
         n_src=100_000, n_tgt=100_000, occupied_cells=40_000,
-        n_devices=8, tp=4, select_max_w=0,
+        n_devices=8, tp=4,
     )
-    assert out["layout"] == "points"
-    assert out["w_points"] < out["w_targets"]
+    assert out["w_targets"] <= out["w_points"]
+    assert out["layout"] == "targets"
+    tie = choose_pool_shard_layout(
+        n_src=8_000, n_tgt=100_000, occupied_cells=100_000,
+        n_devices=8, tp=4,
+    )
+    assert tie["w_points"] == tie["w_targets"]
+    assert tie["layout"] == "targets"
 
 
 def test_chooser_dense_scan_prefers_targets():
-    # KITTI-like density: wide unions (27 * 131k / 18k ~ 196 lanes) shrink
-    # below the floor only after the split, occupancy/devrow >> 8.
+    # Dense: wide unions (27 * 131k / 800 ~ 4.4k lanes) and
+    # occupancy/devrow >> 8, so the width shrink beats the row growth.
     out = choose_pool_shard_layout(
         n_src=131_072, n_tgt=131_072, occupied_cells=800,
-        n_devices=8, tp=4, select_max_w=0,
+        n_devices=8, tp=4,
     )
     assert out["layout"] == "targets"
     assert out["w_targets"] < out["w_points"]
@@ -49,7 +55,7 @@ def test_chooser_dense_scan_prefers_targets():
 def test_chooser_tp1_is_targets_noop():
     out = choose_pool_shard_layout(
         n_src=10_000, n_tgt=10_000, occupied_cells=5_000,
-        n_devices=8, tp=1, select_max_w=0,
+        n_devices=8, tp=1,
     )
     # tp=1: both estimates coincide (no split), layout stays "targets".
     assert out["layout"] == "targets"

@@ -1,4 +1,4 @@
-"""Tie-order sensitivity of the k-th association slot (round-1 VERDICT item).
+"""Tie-order sensitivity of the k-th association slot.
 
 FLANN's radiusSearch returns distance-sorted neighbors with ITS tie order
 (prob_point_cloud_registration.cc:74-75); the rebuild's engines sort by
